@@ -10,12 +10,14 @@ Phases, in order; any failure exits non-zero:
    parallel) and the native host runtime (g++), which must build.
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes: pack (8192 x 384 codes with '*', 'X', 'x'; lengths
-   U[0, 384]), probe (the ~20M-key smoke table, ~2.5M windows, half hits),
-   automaton (a real uniform chunk's hit streams, the probe's random
-   streams, and adversarial rows: REC_CAP overflow, length > 65535,
-   mad_floor = 30.1).  Bit-identical outputs
-   are required; hi/lo are compared under the call mask, the probe's fm
-   under valid.
+   U[0, 384]), probe (the ~20M-key smoke table, ~2.5M windows, half hits,
+   and a flat run of odd length; timed also without the leaf), automaton
+   (a real uniform chunk's hit streams, as they are and with means spread
+   over [200, 400), the probe's random streams, and
+   testing.automaton_rows: the edge rows and random rows at W 48
+   and 304 with mad_floor 30.0 and 30.1, B 77, and a 64-row chunk of
+   W 16384).  Bit-identical outputs are required;
+   hi/lo are compared under the call mask, the probe's fm under valid.
 3. the main path at full size: a ~20M-key WideKmerTable, 16384 uniform
    300-aa queries with 3% point mutations and 16384 U[60, 600] queries,
    each called through FunctionCaller(device="cuda").call_batch with
@@ -142,41 +144,6 @@ def as_batch(seqs, prefix):
                          [""] * len(seqs))
 
 
-def adversarial_streams(W: int):
-    """(found, fm, lengths) rows that exercise REC_CAP overflow, the
-    65535 length guard and constant means (mad 0 -> the floor)."""
-    import numpy as np
-
-    rng = np.random.default_rng(1)
-    rows = []
-    for r in range(256):
-        hits = {}
-        kind = r % 4
-        if kind == 0:  # many function switches -> > REC_CAP records
-            for b in range(8):
-                for j in range(8):
-                    hits[b * 40 + j * 4] = (33000 + b, 300)
-        elif kind == 1:  # constant means: mad 0 -> mad_floor
-            for p in range(0, 60, 6):
-                hits[p] = (40000 + r, 300)
-        else:  # random sparse streams over a few functions
-            n = int(rng.integers(0, 80))
-            for p in rng.choice(W, size=n, replace=False):
-                hits[int(p)] = (int(rng.integers(32760, 32770)),
-                                int(rng.integers(200, 400)))
-        rows.append(hits)
-    found = np.zeros((len(rows), W), bool)
-    fm = rng.integers(0, 1 << 32, (len(rows), W), dtype=np.uint64).astype(
-        np.uint32)
-    for i, hits in enumerate(rows):
-        for p, (f, m) in hits.items():
-            found[i, p] = True
-            fm[i, p] = (f << 16) | m
-    lengths = rng.integers(100, 520, len(rows)).astype(np.int32)
-    lengths[3::16] = 70000
-    return found, fm, lengths
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=7)
@@ -204,6 +171,7 @@ def main() -> int:
     from signature_kmers_tpu_torch.core.config import CallConfig, DeviceConfig
     from signature_kmers_tpu_torch.golden.call import find_best_call
     from signature_kmers_tpu_torch.models.function_caller import FunctionCaller
+    from signature_kmers_tpu_torch import testing as kernel_cases
     from signature_kmers_tpu_torch.ops import automaton, kmer_pack, probe
     from signature_kmers_tpu_torch.runtime import host
 
@@ -272,24 +240,33 @@ def main() -> int:
            B * L + 4 * B + 9 * B * W, 40 * B * W)
 
     # probe: ~2.5M windows at the uniform set's (B, W), half of them hits
-    pick = rng.integers(0, key_hi.shape[0], (B, W))
-    hit = rng.random((B, W)) < 0.5
-    qhi = np.where(hit, key_hi[pick], rng.integers(0, 1 << 24, (B, W)))
-    qlo = np.where(hit, key_lo[pick], rng.integers(0, 1 << 24, (B, W)))
-    qhi = torch.from_numpy(qhi.astype(np.uint32).view(np.int32)).to(dev)
-    qlo = torch.from_numpy(qlo.astype(np.uint32).view(np.int32)).to(dev)
-    qvalid = torch.from_numpy(rng.random((B, W)) < 0.95).to(dev)
+    qhi, qlo, qvalid = (torch.from_numpy(a.view(np.int32) if a.dtype ==
+                                         np.uint32 else a).to(dev)
+                        for a in kernel_cases.probe_queries(
+                            key_hi, key_lo, (B, W), args.seed + 2,
+                            valid_rate=0.95))
+    high_fn = int(table.packed[:, table.slots:].max() >> 16)  # >= 32768
+    n_odd = B * W - 5  # a flat run whose length is not a multiple of 4
     mism, err = 0, 0
-    for ignore in (1234, -1):  # the last pair (no ignore) is reused below
-        f1, fm1 = probe.probe_wide(qhi, qlo, qvalid, packed_t, ov_packed_t,
+    # the last pair (whole, no ignore) is reused below
+    for q, ignore in (((qhi.view(-1)[:n_odd], qlo.view(-1)[:n_odd],
+                        qvalid.view(-1)[:n_odd]), high_fn),
+                      ((qhi, qlo, qvalid), 1234), ((qhi, qlo, qvalid), -1)):
+        f1, fm1 = probe.probe_wide(*q, packed_t, ov_packed_t,
                                    ignore_function=ignore, **probe_kw)
         f2, fm2 = probe.probe_wide_reference(
-            qhi, qlo, qvalid, packed_t, ov_packed_t, ignore_function=ignore,
-            **probe_kw)
+            *q, packed_t, ov_packed_t, ignore_function=ignore, **probe_kw)
         torch.cuda.synchronize()
-        for a, b in ((f1, f2), (fm1[qvalid], fm2[qvalid])):
+        for a, b in ((f1, f2), (fm1[q[2]], fm2[q[2]])):
             n_, e_ = max_diff(a, b)
             mism, err = mism + n_, max(err, e_)
+    try:
+        probe.probe_wide(qhi.view(-1)[1:], qlo.view(-1)[1:],
+                         qvalid.view(-1)[1:], packed_t, ov_packed_t,
+                         **probe_kw)
+        fail("probe_wide took a view off a 16-byte boundary")
+    except ValueError:
+        pass
     n_win = B * W
     n_valid = int(qvalid.sum())
     main_hit, _ = probe.probe_wide_reference(
@@ -300,20 +277,35 @@ def main() -> int:
     leaf_in_l2 = leaf_bytes <= L2_BYTES
     print(f"probe: {n_win} windows, {n_valid} valid, "
           f"{float(f1.float().mean()):.3f} found, {n_leaf} leaf reads "
-          f"({leaf_bytes / 2**20:.1f} MiB leaf"
+          f"({leaf_bytes / 2**20:.1f} MiB leaf of "
+          f"{table.ov_packed.shape[1] // 2} slots"
           f"{', in L2' if leaf_in_l2 else ''})")
+
+    def probe_call():
+        return probe.probe_wide(qhi, qlo, qvalid, packed_t, ov_packed_t,
+                                **probe_kw)
+
     # bytes: hi, lo, valid in and found, fm out per window, plus one
     # 32-byte DRAM sector of the main table per valid window; the leaf
     # reads (valid windows the main row missed) are DRAM sectors only
     # when the leaf does not fit in L2.  operations: ~45 per table read
     # (three fmix32 rounds, the split, the slot compares)
-    record("probe_wide", mism, err,
-           time_ms(lambda: probe.probe_wide(qhi, qlo, qvalid, packed_t,
-                                            ov_packed_t, **probe_kw), 20),
+    record("probe_wide", mism, err, time_ms(probe_call, 20),
            time_ms(lambda: probe.probe_wide_reference(
                qhi, qlo, qvalid, packed_t, ov_packed_t, **probe_kw), 3),
            n_win * 14 + 32 * n_valid + (0 if leaf_in_l2 else 32 * n_leaf),
            45 * (n_valid + n_leaf))
+    # what limits it: the rate of random main-table sectors it reaches, and
+    # the same launch without the leaf (main rows only; other results)
+    main_only_ms = time_ms(lambda: probe.probe_wide(
+        qhi, qlo, qvalid, packed_t, ov_packed_t,
+        **dict(probe_kw, has_overflow=False)), 20)
+    ms = report["probe_wide"]["ms"]
+    print(f"probe_wide: {n_valid / ms / 1e6:.2f} G random main-table sectors"
+          f"/s ({n_valid * 32 / ms / 1e9:.3f} TB/s of sectors), "
+          f"{report['probe_wide']['bound_ms'] / ms:.1%} of its bound; "
+          f"{ms:.4f} ms, of which main rows alone {main_only_ms:.4f} ms and "
+          f"{n_leaf} leaf lookups the rest [{card}]")
 
     # automaton: the hit streams of a real uniform chunk (the main path's
     # expand -> pack -> probe on the first B uniform queries), then the
@@ -332,13 +324,25 @@ def main() -> int:
             kmer_pack.expand_rows16(c_rows, c_start, c_len, L), c_len, W),
         packed_t, ov_packed_t, **probe_kw)
     auto_args = (cfg.min_hits, cfg.max_gap, cfg.k)
-    mism, err = 0, 0
-    fa, fma, la = adversarial_streams(512)
+    # every smoke-table key has mean 300, so pass B's bisection has nothing
+    # to search on the real chunk; the same hits with means spread over
+    # [200, 400) make it search as a real table would
+    c_fm_spread = (c_fm & -65536) | torch.randint(
+        200, 400, c_fm.shape, device=dev, dtype=torch.int32,
+        generator=torch.Generator(dev).manual_seed(args.seed))
     cases = [(c_found, c_fm, c_len, cfg.mad_floor),
-             (f1, fm1, c_len, cfg.mad_floor)] + [
-        (torch.from_numpy(fa).to(dev),
-         torch.from_numpy(fma.view(np.int32)).to(dev),
-         torch.from_numpy(la).to(dev), floor) for floor in (30.0, 30.1)]
+             (c_found, c_fm_spread, c_len, cfg.mad_floor),
+             (f1, fm1, c_len, cfg.mad_floor)]
+    # the edge rows (B 77, not a multiple of the 8 rows per block), then a
+    # 64-row chunk of 16K-window rows that no shared memory holds
+    for w_rows, n_random, floors in ((48, 64, (30.0, 30.1)),
+                                     (304, 64, (30.0, 30.1)),
+                                     (16384, 51, (30.0,))):
+        _, fa, fma, la = kernel_cases.automaton_rows(w_rows, n_random)
+        cases += [(torch.from_numpy(fa).to(dev),
+                   torch.from_numpy(fma.view(np.int32)).to(dev),
+                   torch.from_numpy(la).to(dev), floor) for floor in floors]
+    mism, err = 0, 0
     for found_c, fm_c, len_c, floor in cases:
         o1 = automaton.device_automaton_packed(found_c, fm_c, len_c,
                                                *auto_args, mad_floor=floor)
@@ -351,11 +355,13 @@ def main() -> int:
         n_over = int((o1[:, 0] > automaton.REC_CAP).sum())
         print(f"automaton case B={found_c.shape[0]} W={found_c.shape[1]} "
               f"hits {int(found_c.sum())} mad_floor={floor}: {n_over} rows "
-              f"flagged for the host")
+              f"flagged for the host, {n_} words differ")
     n_hits = int(c_found.sum())
     # bytes: found and fm in per window, lengths in, 13 words out per row.
     # operations: a test per window in pass A, and per hit ~20 in pass A
-    # plus 2 for each of the 36 counting passes of pass B
+    # plus 2 for each of the 36 counting passes that the XLA program's
+    # search makes per record (16 + 1 over the means, 18 + 1 over the
+    # deviations; the kernel bisects only the members' value range)
     record("device_automaton_packed", mism, err,
            time_ms(lambda: automaton.device_automaton_packed(
                c_found, c_fm, c_len, *auto_args), 10),
@@ -364,6 +370,10 @@ def main() -> int:
                    c_found, c_fm, c_len, *auto_args), c_len), 2),
            B * W * 5 + 4 * B + 4 * automaton.PACKED_WORDS * B,
            B * W + 92 * n_hits)
+    spread_ms = time_ms(lambda: automaton.device_automaton_packed(
+        c_found, c_fm_spread, c_len, *auto_args), 10)
+    print(f"device_automaton_packed on the same hits with means spread over "
+          f"[200, 400): {spread_ms:.4f} ms [{card}]")
     if any(r["mismatches"] for r in report.values()):
         fail(f"kernel/plain mismatch: {report}")
 

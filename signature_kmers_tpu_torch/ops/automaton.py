@@ -202,13 +202,10 @@ def device_automaton_packed(found, fm, lengths, min_hits: int, max_gap: int,
     cl.check(lengths, "lengths", torch.int32, (B,))
     out = torch.empty((B, PACKED_WORDS), dtype=torch.int32,
                       device=found.device)
-    scratch = torch.empty((max(W, 1), B), dtype=torch.int32,
-                          device=found.device)
     cl.launch("automaton",
               [found.data_ptr(), fm.data_ptr(), lengths.data_ptr(), B, W,
                min_hits, max_gap, k, float(np.float32(mad_floor)),
-               float(np.float32(len_window)), scratch.data_ptr(),
-               out.data_ptr()],
+               float(np.float32(len_window)), out.data_ptr()],
               found.device)
     device_automaton_packed.launches += 1
     return out

@@ -43,6 +43,15 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def check_aligned(nbytes: int, **tensors: torch.Tensor):
+    """Raise for a tensor whose data does not start on an nbytes boundary
+    (a view with an offset; torch's own allocations are aligned)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % nbytes:
+            raise ValueError(f"{name}: data must be {nbytes}-byte aligned "
+                             f"for the kernel's vector loads")
+
+
 # each kernel library's C entry point and its arguments before the stream
 ENTRY_POINTS = {
     "pack_call_windows": ("skt_pack_call_windows",
@@ -51,7 +60,7 @@ ENTRY_POINTS = {
                    [PTR, PTR, PTR, LONG, PTR, INT, UINT, INT, PTR, INT, UINT,
                     INT, INT, INT, PTR, PTR]),
     "automaton": ("skt_automaton_packed",
-                  [PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, FLOAT, PTR,
+                  [PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, FLOAT,
                    PTR]),
 }
 

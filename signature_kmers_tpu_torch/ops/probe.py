@@ -73,9 +73,15 @@ def probe_wide(hi, lo, valid, packed, ov_packed, *, salt: int, bits: int,
     if packed.shape[0] != 1 << bits or (
             has_overflow and ov_packed.shape[0] != 1 << ov_bits):
         raise ValueError("table row counts do not match bits/ov_bits")
+    if packed.shape[1] not in (4, 8):
+        raise ValueError(f"packed: the kernel takes 2 or 4 slots per row, "
+                         f"got {packed.shape[1] // 2}")
     hashing.check_bits(bits)
     if has_overflow:
         hashing.check_bits(ov_bits)
+    # the kernel moves 4 windows and whole main rows as 16-byte words
+    cl.check_aligned(16, hi=hi, lo=lo, valid=valid, packed=packed,
+                     ov_packed=ov_packed)
     found = torch.empty(shape, dtype=torch.bool, device=hi.device)
     fm = torch.empty(shape, dtype=torch.int32, device=hi.device)
     cl.launch("probe_wide",

@@ -11,6 +11,7 @@ import torch
 from signature_kmers_tpu.core.config import CallConfig
 from signature_kmers_tpu.ops import automaton as ja
 from signature_kmers_tpu_torch.ops import automaton as ta
+from signature_kmers_tpu_torch import testing as kernel_cases
 
 CFG = CallConfig()
 
@@ -30,9 +31,14 @@ def _arrays(streams, W):
     return found, fm
 
 
+PAD_B = 96  # every call pads to one batch size: one JAX compile per config
+
+
 def _run_both(streams, lens, W=512, cfg=CFG):
+    n = len(streams)
+    streams = list(streams) + [[]] * (PAD_B - n)
     found, fm = _arrays(streams, W)
-    lens = np.asarray(lens, np.int32)
+    lens = np.asarray(list(lens) + [300] * (PAD_B - n), np.int32)
     func = (fm >> 16).astype(np.int32)
     mean = (fm & 0xFFFF).astype(np.int32)
     jout = ja.device_automaton(found, func, mean, lens, cfg.min_hits,
@@ -51,9 +57,9 @@ def _run_both(streams, lens, W=512, cfg=CFG):
         tf, tfm, tl, cfg.min_hits, cfg.max_gap, cfg.k,
         mad_floor=cfg.mad_floor, len_window=cfg.len_mad_window)
     assert tpacked.dtype == torch.int32
-    assert tpacked.shape == (len(streams), ta.PACKED_WORDS)
+    assert tpacked.shape == (PAD_B, ta.PACKED_WORDS)
     np.testing.assert_array_equal(tpacked.numpy(), jpacked)
-    return jpacked
+    return jpacked[:n]
 
 
 def _random_streams(seed, n_seqs=96, n_funcs=4, max_hits=80, W=512):
@@ -119,3 +125,62 @@ def test_unpack_records_matches_jax():
     assert got.keys() == want.keys()
     for key in want:
         np.testing.assert_array_equal(got[key], want[key])
+
+
+# ---- the edge rows of the kernel's warp tiling, one JAX call per module ----
+
+EDGE_W = 304  # not a multiple of the kernel's 32-window step
+
+
+@pytest.fixture(scope="module")
+def edge_rows():
+    names, found, fm, lens = kernel_cases.automaton_rows(EDGE_W, n_random=16)
+    func = (fm >> 16).astype(np.int32)
+    mean = (fm & 0xFFFF).astype(np.int32)
+    jout = ja.device_automaton(found, func, mean, lens, CFG.min_hits,
+                               CFG.max_gap, CFG.k, mad_floor=CFG.mad_floor,
+                               len_window=CFG.len_mad_window)
+    jout = {key: np.asarray(v) for key, v in jout.items()}
+    jpacked = np.asarray(ja.pack_records(jout, lens))
+    args = [torch.from_numpy(a) for a in (found, fm.view(np.int32), lens)]
+    params = (CFG.min_hits, CFG.max_gap, CFG.k, CFG.mad_floor,
+              CFG.len_mad_window)
+    tout = ta.device_automaton_reference(*args, *params)
+    tpacked = ta.device_automaton_packed(*args, *params).numpy()
+    return np.array(names), jout, jpacked, tout, tpacked
+
+
+# what each named row must show in the JAX package's own result r (and
+# packed block p), so that the row exercises the edge it is named for
+EXPECT = {
+    "all_hit": lambda r, p: (r["n_recs"] == 1)
+    & (r["count"][:, 0] == EDGE_W),
+    "all_hit_fn0": lambda r, p: (r["fI"][:, 0] == 0)
+    & (r["mad"][:, 0] == 30.0),
+    "ends_only": lambda r, p: r["n_recs"] == 0,
+    "ends_blocks": lambda r, p: r["n_recs"] == 2,
+    "members_40": lambda r, p: r["count"][:, 0] == 40,
+    "gap_exact": lambda r, p: (r["n_recs"] == 1) & (r["count"][:, 0] == 10),
+    "gap_plus_one": lambda r, p: r["n_recs"] == 2,
+    "zero_hits": lambda r, p: r["n_recs"] == 0,
+    "below_min_hits": lambda r, p: (r["n_recs"] == 2)
+    & ~r["call_valid"].any(axis=1),
+    "rec_cap_overflow": lambda r, p: r["n_recs"] > ta.REC_CAP,
+    "length_guard": lambda r, p: p[:, 0] == ta.REC_CAP + 1,
+    "const_means": lambda r, p: r["mad"][:, 0] == 30.0,
+    "spread_means": lambda r, p: r["call_valid"][:, 0],
+    "random": lambda r, p: p[:, 0] >= 0,
+}
+
+
+@pytest.mark.parametrize("name", kernel_cases.EDGE_ROW_NAMES + ("random",))
+def test_edge_rows_match_jax(edge_rows, name):
+    names, jout, jpacked, tout, tpacked = edge_rows
+    rows = names == name
+    assert rows.any()
+    for key, v in jout.items():
+        np.testing.assert_array_equal(tout[key].numpy()[rows], v[rows],
+                                      err_msg=key)
+    np.testing.assert_array_equal(tpacked[rows], jpacked[rows])
+    assert EXPECT[name]({key: v[rows] for key, v in jout.items()},
+                        jpacked[rows]).all()

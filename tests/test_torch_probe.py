@@ -7,8 +7,10 @@ import torch
 
 import jax.numpy as jnp
 
+from signature_kmers_tpu.ops import hashing as jh
 from signature_kmers_tpu.ops import probe as jprobe
 from signature_kmers_tpu.table import wide_table as jwt
+from signature_kmers_tpu_torch import testing as kernel_cases
 from signature_kmers_tpu_torch.ops import probe as tprobe
 from signature_kmers_tpu_torch.table import wide_table as twt
 
@@ -149,3 +151,72 @@ def test_load_both_wide_formats(tmp_path, fmt):
     for name in ("packed", "aux", "ov_packed", "ov_aux"):
         np.testing.assert_array_equal(getattr(tt, name), getattr(jt, name))
     assert (tt.salt, tt.bits, tt.ov_items) == (jt.salt, jt.bits, jt.ov_items)
+
+
+def _port_probe(tt, qhi, qlo, valid, tables, ignored):
+    f, fm = tprobe.probe_wide(
+        torch.from_numpy(qhi.view(np.int32)),
+        torch.from_numpy(qlo.view(np.int32)), torch.from_numpy(valid),
+        *tables, salt=tt.salt, bits=tt.bits, ov_salt=tt.ov_salt,
+        ov_bits=tt.ov_bits, has_overflow=tt.ov_items > 0,
+        ignore_function=ignored)
+    return f.numpy(), fm.numpy().view(np.uint32)
+
+
+def test_probe_odd_length_ignore_high_function(tables):
+    # n % 4 == 1 (the kernel's 4-window tail) and an ignored function
+    # index >= 32768 (fm >> 16 is a logical shift)
+    _, ent, jt, tt = tables
+    qhi, qlo, valid = kernel_cases.probe_queries(ent[0], ent[1], (4097,), 21)
+    jf, jfm = jprobe.probe_wide(
+        jnp.asarray(jt.packed), jnp.asarray(jt.ov_packed), jnp.asarray(qhi),
+        jnp.asarray(qlo), jt.salt, jt.ov_salt, jt.bits, jt.ov_bits,
+        ov_empty=jt.ov_items == 0)
+    jf, jfm = np.asarray(jf) & valid, np.asarray(jfm)
+    ignored = int((jfm[jf] >> 16).max())
+    assert ignored >= 32768
+    f, fm = _port_probe(tt, qhi, qlo, valid, tt.to_device("cpu"), ignored)
+    np.testing.assert_array_equal(f, jf & ((jfm >> 16) != ignored))
+    np.testing.assert_array_equal(fm[valid], jfm[valid])
+    assert f.sum() < jf.sum()
+
+
+@pytest.mark.parametrize("slots", [2, 4])
+@pytest.mark.parametrize("bits", [25, 30])
+def test_probe_high_bits_branch(bits, slots):
+    # A table of 2**bits identical rows (a stride-0 view, so no memory)
+    # whose tags are those of the first queries: the main table takes the
+    # bits > 24 split, the leaf (bits - 1, 3 slots) the other one at 24.
+    rng = np.random.default_rng(bits + slots)
+    n, ov_slots = 4099, 3
+    qhi, qlo = (rng.integers(0, 1 << 24, n).astype(np.uint32)
+                for _ in range(2))
+    valid = rng.random(n) < 0.9
+    salt, ov_salt, ov_bits = 0x51DE_0000, 0x51DE_F0F0, bits - 1
+
+    def rows(S, salt_, bits_, first):
+        tag = jh.wide_bucket_tag(*jh.perm48(qhi, qlo, salt_), bits_)[1]
+        v0 = (rng.integers(0, 65536, S).astype(np.uint32) << 16) | 7
+        v1 = rng.integers(0, 1 << 32, S, dtype=np.uint64).astype(np.uint32)
+        v2 = rng.integers(0, 1 << 32, S, dtype=np.uint64).astype(np.uint32)
+        fm = ((v0 >> 16) << 16) | (v1 & 0xFFFF)
+        packed = np.concatenate([tag[first:first + S], fm])
+        aux = np.concatenate([v0, v1, v2])
+        return ([np.broadcast_to(a, (1 << bits_, a.shape[0]))
+                 for a in (packed, aux)],
+                torch.from_numpy(packed.view(np.int32)).expand(
+                    1 << bits_, 2 * S))
+
+    (packed, aux), t_packed = rows(slots, salt, bits, 0)
+    (ov_packed, ov_aux), t_ov = rows(ov_slots, ov_salt, ov_bits, slots)
+    jt = jwt.WideKmerTable(packed, aux, ov_packed, ov_aux, salt, bits,
+                           ov_salt, ov_bits, n_items=0, ov_items=1)
+    tt = twt.WideKmerTable(packed, aux, ov_packed, ov_aux, salt, bits,
+                           ov_salt, ov_bits, n_items=0, ov_items=1)
+    lf, r0, r1, _ = jt.lookup_np(qhi, qlo)
+    lf &= valid
+    assert lf[:slots + ov_slots].sum() == valid[:slots + ov_slots].sum()
+    f, fm = _port_probe(tt, qhi, qlo, valid, (t_packed, t_ov), -1)
+    np.testing.assert_array_equal(f, lf)
+    np.testing.assert_array_equal(fm[lf], (((r0 >> 16) << 16)
+                                           | (r1 & 0xFFFF))[lf])
