@@ -9,9 +9,13 @@ Phases, in order; any failure exits non-zero:
    builds the three CUDA kernels from the checkout (one nvcc each, in
    parallel) and the native host runtime (g++), which must build.
 2. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes: pack (8192 x 384 codes with '*', 'X', 'x'; lengths
-   U[0, 384]), probe (the ~20M-key smoke table, ~2.5M windows, half hits,
-   and a flat run of odd length; timed also without the leaf), automaton
+   path's shapes: pack (8192 sequences of transfer rows at L 384 from
+   testing.transfer_rows, '*', 'X', 'x', lengths U[0, 384], at W 304 and
+   384; a real uniform chunk's rows at W 304; 1000 sequences at L 640,
+   W 608, the grid's last warp part empty; timed on the uniform chunk as
+   issued and with the stream held (device time alone), beside the plain
+   expand_rows16 it fused in and torch's fill_ of its output bytes), probe (the ~20M-key smoke table, ~2.5M windows, half
+   hits, and a flat run of odd length; timed also without the leaf), automaton
    (a real uniform chunk's hit streams, as they are and with means spread
    over [200, 400), the probe's random streams, and
    testing.automaton_rows: the edge rows and random rows at W 48
@@ -22,7 +26,8 @@ Phases, in order; any failure exits non-zero:
    300-aa queries with 3% point mutations and 16384 U[60, 600] queries,
    each called through FunctionCaller(device="cuda").call_batch with
    DeviceConfig(call_batch=8192).  Launch counts are reset just before and
-   read just after; 512 sampled rows per set must equal the exact host
+   read just after, and the phase fails if it calls the plain
+   expand_rows16; 512 sampled rows per set must equal the exact host
    route (host table probe -> golden automaton -> find_best_call).
    Each set is called once to warm up, then three timed times.
 4. one JSON line of per-kernel numbers, the card line, and the contract
@@ -62,14 +67,26 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over iters launches (CUDA events)."""
+def time_ms(fn, iters: int, hold: bool = False) -> float:
+    """Mean time of fn() over iters calls between two CUDA events.
+
+    By default the events see the calls as the host issues them, so a
+    wrapper whose host side outlasts its kernel reads its host time.  With
+    hold, a spin kernel holds the stream while the host enqueues the
+    calls, and the events time the device's work back to back."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if hold:
+        t = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        # twice the host's enqueue time at up to 2 GHz, at most ~1 s
+        torch.cuda._sleep(int(min(2 * iters * host_s, 1.0) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -167,7 +184,6 @@ def main() -> int:
 
     import numpy as np
 
-    from signature_kmers_tpu_torch.core import alphabet
     from signature_kmers_tpu_torch.core.config import CallConfig, DeviceConfig
     from signature_kmers_tpu_torch.golden.call import find_best_call
     from signature_kmers_tpu_torch.models.function_caller import FunctionCaller
@@ -216,28 +232,72 @@ def main() -> int:
         return (int((d != 0).sum()), int(d.max()) if d.numel() else 0)
 
     # ---- phase 2: kernels against plain versions -------------------------
+    # pack: edge and random transfer rows (lengths U[0, 384], '*', 'X',
+    # 'x'; W = L takes the groups past L), a real uniform chunk's rows, and
+    # the longest mixed chunk's shape (B 1000: 38000 groups, so the grid's
+    # last warp is part empty)
     B, L, W = 8192, 384, 304
-    aa = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY*Xx", np.uint8)
-    codes_np = alphabet.BYTE_TO_CODE[aa[rng.integers(0, aa.shape[0],
-                                                    (B, L))]]
-    lens_np = rng.integers(0, L + 1, B).astype(np.int32)
-    codes_np[np.arange(L)[None, :] >= lens_np[:, None]] = \
-        alphabet.INVALID_CODE
-    codes = torch.from_numpy(codes_np).to(dev)
-    lens = torch.from_numpy(lens_np).to(dev)
-    h1, l1, v1 = kmer_pack.pack_call_windows(codes, lens, W)
-    h2, l2, v2 = kmer_pack.pack_call_windows_reference(codes, lens, W)
+
+    def rows_on_dev(rows):
+        return [torch.from_numpy(a.view(np.int32)).to(dev) for a in rows]
+
+    chunk = as_batch(uniform[:B], "c")
+    c_rows, c_start, c_len = rows_on_dev(kmer_pack.pack_u6_rows_host(
+        chunk.codes, chunk.offsets, B, L))
+    pack_cases = [
+        (rows_on_dev(kernel_cases.transfer_rows(L, B, args.seed + 3)), L,
+         (W, L)),
+        ((c_rows, c_start, c_len), L, (W,)),
+        (rows_on_dev(kernel_cases.transfer_rows(640, 1000, args.seed + 4,
+                                                max_len=600)), 640, (608,)),
+    ]
+    mism, err = 0, 0
+    for rows, Lc, widths in pack_cases:
+        for Wc in widths:
+            h1, l1, v1 = kmer_pack.pack_call_windows_rows16(*rows, Lc, Wc)
+            h2, l2, v2 = kmer_pack.pack_call_windows_rows16_reference(
+                *rows, Lc, Wc)
+            torch.cuda.synchronize()
+            n_case = 0
+            for a, b in ((v1, v2), (h1[v2], h2[v2]), (l1[v2], l2[v2])):
+                n_, e_ = max_diff(a, b)
+                n_case, err = n_case + n_, max(err, e_)
+            mism += n_case
+            print(f"pack case B={rows[1].shape[0]} L={Lc} W={Wc}: "
+                  f"{int(v2.sum())} valid windows, {n_case} words differ")
+
+    def pack_kernel():
+        return kmer_pack.pack_call_windows_rows16(c_rows, c_start, c_len, L, W)
+
+    # bytes: 12 per transfer row that the windows cover and 8 per sequence
+    # in (start_row, length), hi, lo (4 B each) and valid out per window.
+    # operations: ~20 integer operations per window
+    record("pack_call_windows_rows16", mism, err, time_ms(pack_kernel, 50),
+           time_ms(lambda: kmer_pack.pack_call_windows_rows16_reference(
+               c_rows, c_start, c_len, L, W), 5),
+           12 * B * (W // 16) + 8 * B + 9 * B * W, 20 * B * W)
+    # the before-figure: the plain expand that the kernel fused in
+    expand_ms = time_ms(
+        lambda: kmer_pack.expand_rows16(c_rows, c_start, c_len, L), 20)
+    print(f"expand_rows16 (plain torch, off the main path): {expand_ms:.4f} "
+          f"ms per {B}-row chunk [{card}]")
+    # the figure above is paced by whichever is slower, the kernel or its
+    # wrapper's host side: time the host side alone (host clock, no
+    # synchronize inside), then the kernel with the stream held, beside
+    # the card's own fill of the same output bytes as a yardstick
+    t = time.perf_counter()
+    for _ in range(50):
+        pack_kernel()
+    host_ms = (time.perf_counter() - t) / 50 * 1e3
     torch.cuda.synchronize()
-    nv, ev = max_diff(v1, v2)
-    nh, eh = max_diff(h1[v2], h2[v2])
-    nl, el = max_diff(l1[v2], l2[v2])
-    # bytes: codes and lengths in; hi, lo (4 B each) and valid out per
-    # window.  operations: ~40 integer operations per window
-    record("pack_call_windows", nv + nh + nl, max(ev, eh, el),
-           time_ms(lambda: kmer_pack.pack_call_windows(codes, lens, W), 50),
-           time_ms(lambda: kmer_pack.pack_call_windows_reference(
-               codes, lens, W), 5),
-           B * L + 4 * B + 9 * B * W, 40 * B * W)
+    held_ms = time_ms(pack_kernel, 50, hold=True)
+    fill_bytes = torch.empty(9 * B * W, dtype=torch.uint8, device=dev)
+    fill_ms = time_ms(lambda: fill_bytes.fill_(1), 50, hold=True)
+    print(f"pack_call_windows_rows16: wrapper host side {host_ms:.4f} ms per "
+          f"call; with the stream held {held_ms:.4f} ms "
+          f"({report['pack_call_windows_rows16']['bound_ms'] / held_ms:.1%} "
+          f"of its bound); torch fill_ of the same {9 * B * W} output bytes "
+          f"with the stream held {fill_ms:.4f} ms [{card}]")
 
     # probe: ~2.5M windows at the uniform set's (B, W), half of them hits
     qhi, qlo, qvalid = (torch.from_numpy(a.view(np.int32) if a.dtype ==
@@ -308,20 +368,10 @@ def main() -> int:
           f"{n_leaf} leaf lookups the rest [{card}]")
 
     # automaton: the hit streams of a real uniform chunk (the main path's
-    # expand -> pack -> probe on the first B uniform queries), then the
+    # pack -> probe on the first B uniform queries), then the
     # adversarial rows
-    chunk = as_batch(uniform[:B], "c")
-    c_rows, c_start, c_len = (
-        torch.from_numpy(a.view(np.int32)).to(dev)
-        for a in kmer_pack.pack_u6_rows_host(chunk.codes, chunk.offsets, B,
-                                             L))
-    expand_ms = time_ms(
-        lambda: kmer_pack.expand_rows16(c_rows, c_start, c_len, L), 20)
-    print(f"expand_rows16 (plain torch): {expand_ms:.4f} ms per "
-          f"{B}-row chunk [{card}]")
     c_found, c_fm = probe.probe_wide(
-        *kmer_pack.pack_call_windows(
-            kmer_pack.expand_rows16(c_rows, c_start, c_len, L), c_len, W),
+        *kmer_pack.pack_call_windows_rows16(c_rows, c_start, c_len, L, W),
         packed_t, ov_packed_t, **probe_kw)
     auto_args = (cfg.min_hits, cfg.max_gap, cfg.k)
     # every smoke-table key has mean 300, so pass B's bisection has nothing
@@ -382,6 +432,16 @@ def main() -> int:
                             DeviceConfig(call_batch=8192), device="cuda")
     sets = {"uniform300": as_batch(uniform, "u"),
             "mixed60_600": as_batch(mixed, "m")}
+    # the kernel reads the transfer rows itself: the plain expand must not
+    # run anywhere in this phase
+    expand_calls = [0]
+    plain_expand = kmer_pack.expand_rows16
+
+    def counted_expand(*a, **kw):
+        expand_calls[0] += 1
+        return plain_expand(*a, **kw)
+
+    kmer_pack.expand_rows16 = counted_expand
     for batch in sets.values():  # warm-up: allocator, pinned pool, libs
         caller.call_batch(batch)
     torch.cuda.synchronize()
@@ -400,7 +460,7 @@ def main() -> int:
 
     caller._dispatch_device = timed("dispatch", caller._dispatch_device)
     caller._finalize_device = timed("finalize", caller._finalize_device)
-    wrappers = {"pack_call_windows": kmer_pack.pack_call_windows,
+    wrappers = {"pack_call_windows_rows16": kmer_pack.pack_call_windows_rows16,
                 "probe_wide": probe.probe_wide,
                 "device_automaton_packed": automaton.device_automaton_packed}
     for w in wrappers.values():
@@ -424,9 +484,15 @@ def main() -> int:
                   f"{split['finalize']:.4f} s), host_fallback_frac "
                   f"{frac:.6f}, peak device memory {peak:.3f} GiB [{card}]")
     launches = {n: w.launches for n, w in wrappers.items()}
+    kmer_pack.expand_rows16 = plain_expand
+    print(f"main-path launches: {launches}; expand_rows16 calls: "
+          f"{expand_calls[0]}")
     for name, n in launches.items():
         if n <= 0:
             fail(f"{name} was not launched on the main path")
+    if expand_calls[0]:
+        fail(f"the main path called the plain expand_rows16 "
+             f"{expand_calls[0]} times")
 
     # ---- check the main path against the exact host route ----------------
     for name, batch in sets.items():
@@ -454,9 +520,10 @@ def main() -> int:
 
     # ---- phase 4: report ---------------------------------------------------
     sources = {
-        "pack_call_windows": ("signature_kmers_tpu_torch/csrc/"
-                              "pack_call_windows.cu",
-                              "signature_kmers_tpu/ops/pallas_pack.py:62"),
+        "pack_call_windows_rows16": (
+            "signature_kmers_tpu_torch/csrc/pack_call_windows.cu",
+            "signature_kmers_tpu/ops/pallas_pack.py:62 + "
+            "signature_kmers_tpu/ops/kmer_pack.py:302"),
         "probe_wide": ("signature_kmers_tpu_torch/csrc/probe_wide.cu",
                        "signature_kmers_tpu/ops/probe.py:166"),
         "device_automaton_packed": ("signature_kmers_tpu_torch/csrc/"

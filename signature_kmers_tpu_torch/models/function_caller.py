@@ -3,8 +3,7 @@
 Pipeline (ref architecture: call_functions.tcc:259-338):
 
   FASTA -> 16-code-aligned 6-bit rows           (host, native packer)
-        -> expand_rows16                        (device, torch)
-        -> pack_call_windows                    (kernel)
+        -> pack_call_windows_rows16             (kernel; reads the rows)
         -> probe_wide                           (kernel; wide tagged table)
         -> device_automaton_packed              (kernel)
         -> one (B, 13) int32 block per chunk    (one device->host copy)
@@ -147,8 +146,8 @@ class FunctionCaller:
         W = min(L, max(16, -(-(max(nat, k) - k + 1) // 16) * 16))
         packed_rows, start_row, lengths = (
             self._to_device(a) for a in (packed_rows, start_row, lengths))
-        codes = kmer_pack.expand_rows16(packed_rows, start_row, lengths, L)
-        hi, lo, valid = kmer_pack.pack_call_windows(codes, lengths, W)
+        hi, lo, valid = kmer_pack.pack_call_windows_rows16(
+            packed_rows, start_row, lengths, L, W)
         t = self.table
         found, fm = probe.probe_wide(
             hi, lo, valid, *self._tables, salt=t.salt, bits=t.bits,

@@ -54,8 +54,9 @@ def check_aligned(nbytes: int, **tensors: torch.Tensor):
 
 # each kernel library's C entry point and its arguments before the stream
 ENTRY_POINTS = {
-    "pack_call_windows": ("skt_pack_call_windows",
-                          [PTR, PTR, INT, INT, INT, PTR, PTR, PTR]),
+    "pack_call_windows": ("skt_pack_call_windows_rows16",
+                          [PTR, INT, PTR, PTR, INT, INT, INT, PTR, PTR,
+                           PTR]),
     "probe_wide": ("skt_probe_wide",
                    [PTR, PTR, PTR, LONG, PTR, INT, UINT, INT, PTR, INT, UINT,
                     INT, INT, INT, PTR, PTR]),

@@ -2,10 +2,12 @@
 
 Host side: sequences go to the device 6-bit packed, 16 codes to a 96-bit
 row of three uint32 words, each sequence starting on a row boundary
-(pack_u6_rows_host).  Device side: expand_rows16 gathers each sequence's
+(pack_u6_rows_host).  Device side: pack_call_windows_rows16 reads each
+sequence's rows and packs every window into two 24-bit words with the
+call-side validity mask (kernel: csrc/pack_call_windows.cu).  Its plain
+version is the two steps the JAX package runs: expand_rows16 gathers the
 rows back into a (B, L) code matrix padded with INVALID_CODE, and
-pack_call_windows packs every window into two 24-bit words with the
-call-side validity mask (kernel: csrc/pack_call_windows.cu).
+pack_call_windows_reference packs that matrix.
 
 Outputs stay position-aligned: a window's column is its residue position,
 exactly the ``offset`` the reference reports.
@@ -127,7 +129,7 @@ def expand_rows16(packed_rows: torch.Tensor, start_row: torch.Tensor,
                                     device=codes.device))
 
 
-# -- window pack: plain version + kernel wrapper ----------------------------------
+# -- window pack of a code matrix (plain) -------------------------------------
 
 
 def _shift_left(x: torch.Tensor, j: int, fill) -> torch.Tensor:
@@ -139,8 +141,9 @@ def _shift_left(x: torch.Tensor, j: int, fill) -> torch.Tensor:
 
 def pack_call_windows_reference(codes: torch.Tensor, lengths: torch.Tensor,
                                 W: int | None = None):
-    """Plain version of pack_call_windows: the XLA program's log-doubling
-    shifts in int64.  -> (hi, lo) int32 and valid bool, each (B, W)."""
+    """The JAX package's pack_call_windows on a (B, L) code matrix: the XLA
+    program's log-doubling shifts in int64.  -> (hi, lo) int32 and valid
+    bool, each (B, W)."""
     B, L = codes.shape
     W = L if W is None else W
     c = codes.to(torch.int64)
@@ -164,28 +167,52 @@ def pack_call_windows_reference(codes: torch.Tensor, lengths: torch.Tensor,
             valid[:, :W].contiguous())
 
 
-def pack_call_windows(codes: torch.Tensor, lengths: torch.Tensor,
-                      W: int | None = None):
-    """(B, L) uint8 codes, (B,) int32 lengths -> (hi, lo, valid) for the
-    first W windows (default all L).  hi and lo are int32 bit containers
-    of the packed 24-bit words; valid is bool."""
-    B, L = codes.shape
-    W = L if W is None else W
-    if not 0 < W <= L:
-        raise ValueError(f"window width {W} outside (0, {L}]")
-    if not cl.on_cuda(codes, lengths):
-        return pack_call_windows_reference(codes, lengths, W)
-    cl.check(codes, "codes", torch.uint8)
+# -- fused expand + window pack: plain version + kernel wrapper ---------------
+
+
+def pack_call_windows_rows16_reference(packed_rows: torch.Tensor,
+                                       start_row: torch.Tensor,
+                                       lengths: torch.Tensor, L: int,
+                                       W: int):
+    """Plain version of pack_call_windows_rows16: expand_rows16, then
+    pack_call_windows_reference."""
+    return pack_call_windows_reference(
+        expand_rows16(packed_rows, start_row, lengths, L), lengths, W)
+
+
+def pack_call_windows_rows16(packed_rows: torch.Tensor,
+                             start_row: torch.Tensor, lengths: torch.Tensor,
+                             L: int, W: int):
+    """Transfer rows -> (hi, lo, valid) for the first W windows of each
+    sequence at padded width L, without the (B, L) code matrix.
+
+    packed_rows: (R, 3) int32 (pack_u6_rows_host's words); start_row,
+    lengths: (B,) int32; L and W multiples of 16 with 0 < W <= L.  hi and
+    lo are (B, W) int32 bit containers of the 24-bit words; valid is bool.
+    """
+    if L % ALIGN or W % ALIGN or not 0 < W <= L:
+        raise ValueError(f"need L and W multiples of {ALIGN} with "
+                         f"0 < W <= L, got L {L}, W {W}")
+    if not cl.on_cuda(packed_rows, start_row, lengths):
+        return pack_call_windows_rows16_reference(packed_rows, start_row,
+                                                  lengths, L, W)
+    B = start_row.shape[0]
+    R = packed_rows.shape[0]
+    if R == 0:
+        raise ValueError("packed_rows: no rows to clamp the indices to")
+    cl.check(packed_rows, "packed_rows", torch.int32, (R, 3))
+    cl.check(start_row, "start_row", torch.int32, (B,))
     cl.check(lengths, "lengths", torch.int32, (B,))
-    hi = torch.empty((B, W), dtype=torch.int32, device=codes.device)
+    hi = torch.empty((B, W), dtype=torch.int32, device=start_row.device)
     lo = torch.empty_like(hi)
-    valid = torch.empty((B, W), dtype=torch.bool, device=codes.device)
+    valid = torch.empty((B, W), dtype=torch.bool, device=start_row.device)
     cl.launch("pack_call_windows",
-              [codes.data_ptr(), lengths.data_ptr(), B, L, W,
-               hi.data_ptr(), lo.data_ptr(), valid.data_ptr()],
-              codes.device)
-    pack_call_windows.launches += 1
+              [packed_rows.data_ptr(), R, start_row.data_ptr(),
+               lengths.data_ptr(), B, L, W, hi.data_ptr(), lo.data_ptr(),
+               valid.data_ptr()],
+              start_row.device)
+    pack_call_windows_rows16.launches += 1
     return hi, lo, valid
 
 
-pack_call_windows.launches = 0
+pack_call_windows_rows16.launches = 0

@@ -3,8 +3,9 @@
 One generator for every place that holds a kernel or a plain version to
 another: ``chip_smoke.py`` phase 2 and ``tests/test_torch_kernels_cuda.py``
 (kernel against plain version on the card) and the CPU tests (plain version
-against the JAX package).  The automaton kernel runs one warp per row over
-steps of 32 windows; the probe kernel takes 4 windows per thread.
+against the JAX package).  The pack kernel takes 16 windows per thread from
+two transfer rows; the automaton kernel runs one warp per row over steps of
+32 windows; the probe kernel takes 4 windows per thread.
 Nothing on the main path imports this module.
 """
 
@@ -82,6 +83,49 @@ def automaton_rows(W: int, n_random: int = 64, seed: int = 1):
                 fm[i, p] = (f << 16) | m
     lengths = np.array([ln for _, _, ln in rows], np.int32)
     return [name for name, _, _ in rows], found, fm, lengths
+
+
+def transfer_rows(L: int, B: int, seed: int, max_len: int | None = None):
+    """Query transfer rows (pack_u6_rows_host's format) at padded width L
+    for B >= 50 sequences: edge sequences, then random ones over the 20
+    amino acids with '*', 'X' and 'x' of lengths U[0, max_len] (default L).
+
+    The edges: lengths 0-8, multiples of 16, L-9..L-7, L-1 and one longer
+    than L; '*', 'X' and 'x' alone at the 1st, 8th, 9th, 16th, 17th, 24th
+    and 25th code and at L-9, L-8 and L-1.  The all-INVALID row that
+    pack_u6_rows_host appends is dropped, and the last sequence (length
+    L) starts on the row before the last, so its groups run past R - 1
+    into the clamp and read codes there.
+    Returns (packed (R, 3) uint32, start_row (B,) int32, lengths (B,)
+    int32)."""
+    from .core import alphabet
+    from .ops.kmer_pack import ALIGN, pack_u6_rows_host
+
+    rng = np.random.default_rng(seed)
+    aa = alphabet.encode_seq(alphabet.AA20)
+    mixed = alphabet.encode_seq(alphabet.AA20 + "*Xx")
+
+    def plain(n):
+        return aa[rng.integers(0, aa.shape[0], n)]
+
+    seqs = [plain(n) for n in (*range(9), 16, 32, 48, L - 16, L, L - 9,
+                               L - 8, L - 7, L - 1, L + 40)]
+    for code in alphabet.encode_seq("*Xx"):
+        for pos in (0, 7, 8, 15, 16, 23, 24, L - 9, L - 8, L - 1):
+            s = plain(L)
+            s[pos] = code
+            seqs.append(s)
+    top = L if max_len is None else max_len
+    for n in rng.integers(0, top + 1, B - len(seqs) - 1):
+        seqs.append(mixed[rng.integers(0, mixed.shape[0], n)])
+    seqs.append(plain(L))
+    codes = np.concatenate(seqs)
+    offsets = np.concatenate([[0], np.cumsum([s.shape[0] for s in seqs])])
+    packed, start_row, lengths = pack_u6_rows_host(
+        codes, offsets.astype(np.int32), B, L)
+    R = int(start_row[-1]) + L // ALIGN
+    start_row[-1] = R - 2
+    return packed[:R], start_row, lengths
 
 
 def probe_queries(hi, lo, shape, seed: int, hit_rate: float = 0.5,

@@ -11,7 +11,6 @@ import numpy as np
 import pytest
 import torch
 
-from signature_kmers_tpu_torch.core import alphabet
 from signature_kmers_tpu_torch.core.config import CallConfig
 from signature_kmers_tpu_torch import testing as kernel_cases
 from signature_kmers_tpu_torch.ops import automaton, kmer_pack, probe
@@ -30,22 +29,23 @@ def dev():
 
 
 def test_expand_and_pack(dev):
-    rng = np.random.default_rng(0)
-    aa = alphabet.encode_seq(alphabet.AA20 + "*Xx")
-    lens = rng.integers(0, 600, 1000)
-    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
-    codes = aa[rng.integers(0, aa.shape[0], int(offsets[-1]))]
-    packed, start, ln = kmer_pack.pack_u6_rows_host(codes, offsets, 1024, 640)
-    args = [torch.from_numpy(a.view(np.int32)).to(dev)
-            for a in (packed, start, ln)]
-    c = kmer_pack.expand_rows16(*args, 640)
-    for W in (640, 592, 16):
-        before = kmer_pack.pack_call_windows.launches
-        h1, l1, v1 = kmer_pack.pack_call_windows(c, args[2], W)
-        assert kmer_pack.pack_call_windows.launches == before + 1
-        h2, l2, v2 = kmer_pack.pack_call_windows_reference(c, args[2], W)
-        assert torch.equal(v1, v2)
-        assert torch.equal(h1[v2], h2[v2]) and torch.equal(l1[v2], l2[v2])
+    # edge and random transfer rows at L 640, the last sequence's groups
+    # running past the last row; W 640 takes the groups past L, and B 77
+    # leaves the grid's last warp part empty
+    L = 640
+    for B in (1024, 77):
+        rows = [torch.from_numpy(a.view(np.int32)).to(dev)
+                for a in kernel_cases.transfer_rows(L, B, seed=0)]
+        for W in (640, 592, 16):
+            before = kmer_pack.pack_call_windows_rows16.launches
+            h1, l1, v1 = kmer_pack.pack_call_windows_rows16(*rows, L, W)
+            assert kmer_pack.pack_call_windows_rows16.launches == before + 1
+            h2, l2, v2 = kmer_pack.pack_call_windows_rows16_reference(
+                *rows, L, W)
+            assert torch.equal(v1, v2) and 0 < int(v2.sum()) < v2.numel()
+            # the plain version's words are defined everywhere, and so are
+            # the kernel's
+            assert torch.equal(h1, h2) and torch.equal(l1, l2)
 
 
 def _as_int32(a, dev):
@@ -138,6 +138,13 @@ def test_automaton_long_rows(dev):
 
 
 def test_wrappers_raise_on_mixed_devices(dev):
-    codes = torch.zeros((4, 32), dtype=torch.uint8, device=dev)
+    packed = torch.zeros((4, 3), dtype=torch.int32, device=dev)
+    cpu = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="one CUDA device"):
-        kmer_pack.pack_call_windows(codes, torch.zeros(4, dtype=torch.int32))
+        kmer_pack.pack_call_windows_rows16(packed, cpu, cpu, 32, 32)
+    # a width that is not a multiple of 16 raises before any launch
+    before = kmer_pack.pack_call_windows_rows16.launches
+    on_dev = cpu.to(dev)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        kmer_pack.pack_call_windows_rows16(packed, on_dev, on_dev, 32, 24)
+    assert kmer_pack.pack_call_windows_rows16.launches == before

@@ -1,9 +1,11 @@
 """Port k-mer packing against the JAX package: the host row packer byte for
-byte, expand_rows16, and the plain pack_call_windows against both the
-XLA program and the Pallas kernel in interpret mode (as
-tests/test_pallas.py runs it).  Tolerance: exact equality; hi/lo are
-compared only under the call mask (undefined elsewhere in the Pallas
-kernel), the mask everywhere."""
+byte, expand_rows16, the plain pack_call_windows_reference against both
+the XLA program and the Pallas kernel in interpret mode (as
+tests/test_pallas.py runs it), and pack_call_windows_rows16 (transfer rows
+straight to windows) against the JAX package's expand_rows16 followed by
+each of the two.  Tolerance: exact equality; hi/lo are compared with the
+Pallas kernel only under the call mask (undefined elsewhere there), with
+the XLA program everywhere, and the mask everywhere."""
 
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ import jax.numpy as jnp
 from signature_kmers_tpu.core import alphabet
 from signature_kmers_tpu.ops import kmer_pack as jk
 from signature_kmers_tpu.ops.pallas_pack import pack_call_windows_pallas
+from signature_kmers_tpu_torch import testing
 from signature_kmers_tpu_torch.ops import kmer_pack as tk
 
 
@@ -44,18 +47,49 @@ def test_pack_u6_rows_host_matches_jax(seed):
         tk._pack_u6_rows_np(codes, offsets, lens, row_start, R))
 
 
-@pytest.mark.parametrize("L", [384, 512])
-def test_expand_rows16_matches_jax(L):
-    codes, offsets = _batch(L)
-    packed, start_row, lengths = jk.pack_u6_rows_host(codes, offsets, 256, L)
-    want = np.asarray(jk.expand_rows16(jnp.asarray(packed),
-                                       jnp.asarray(start_row),
-                                       jnp.asarray(lengths), L))
-    got = tk.expand_rows16(torch.from_numpy(packed.view(np.int32)),
-                           torch.from_numpy(start_row),
-                           torch.from_numpy(lengths), L)
+@pytest.fixture(scope="module", params=[384, 512], ids=str)
+def rows16(request):
+    """Edge and random transfer rows at width L (testing.transfer_rows, 256
+    sequences), the JAX package's expand_rows16 of them, and its XLA
+    pack_call_windows and Pallas kernel on those codes: one JAX call each
+    per L."""
+    L = request.param
+    rows = testing.transfer_rows(L, 256, seed=L)
+    codes = jk.expand_rows16(*(jnp.asarray(a) for a in rows), L)
+    lens = jnp.asarray(rows[2])
+    xla = [np.asarray(a) for a in jk.pack_call_windows(codes, lens)]
+    pallas = [np.asarray(a) for a in pack_call_windows_pallas(codes, lens)]
+    return L, rows, np.asarray(codes), xla, pallas
+
+
+def _torch_rows(rows):
+    return [torch.from_numpy(a.view(np.int32)) for a in rows]
+
+
+def test_expand_rows16_matches_jax(rows16):
+    L, rows, want, _, _ = rows16
+    got = tk.expand_rows16(*_torch_rows(rows), L)
     assert got.dtype == torch.uint8
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("W", [16, 304, None])
+def test_pack_call_windows_rows16_matches_jax(rows16, W):
+    L, rows, _, (hx, lx, vx), (hp, lp, vp) = rows16
+    W = L if W is None else W
+    h, l, v = tk.pack_call_windows_rows16(*_torch_rows(rows), L, W)
+    B = rows[1].shape[0]
+    assert h.shape == l.shape == v.shape == (B, W)
+    assert h.dtype == l.dtype == torch.int32 and v.dtype == torch.bool
+    h, l, v = h.numpy().view(np.uint32), l.numpy().view(np.uint32), v.numpy()
+    np.testing.assert_array_equal(v, vx[:, :W])
+    np.testing.assert_array_equal(v, vp[:, :W])
+    np.testing.assert_array_equal(h, hx[:, :W])
+    np.testing.assert_array_equal(l, lx[:, :W])
+    np.testing.assert_array_equal(h[v], hp[:, :W][v])
+    np.testing.assert_array_equal(l[v], lp[:, :W][v])
+    # the last window that can be valid is valid in some row
+    assert v[:, min(W, L - 7) - 1].any() and not v.all()
 
 
 def _codes_matrix(seed, B=256, L=384):
@@ -76,8 +110,8 @@ def test_pack_call_windows_matches_xla_and_pallas(W):
         jnp.asarray(codes), jnp.asarray(lens)))
     hp, lp, vp = (np.asarray(a)[:, :Wn] for a in pack_call_windows_pallas(
         jnp.asarray(codes), jnp.asarray(lens)))
-    h, l, v = tk.pack_call_windows(torch.from_numpy(codes),
-                                   torch.from_numpy(lens), W)
+    h, l, v = tk.pack_call_windows_reference(torch.from_numpy(codes),
+                                             torch.from_numpy(lens), W)
     assert h.shape == l.shape == v.shape == (codes.shape[0], Wn)
     h, l, v = (a.numpy() for a in (h, l, v))
     np.testing.assert_array_equal(v, vx)
@@ -95,14 +129,17 @@ def test_pack_call_windows_full_code_range():
     lens = rng.integers(0, 129, 256).astype(np.int32)
     hx, lx, vx = (np.asarray(a) for a in jk.pack_call_windows(
         jnp.asarray(codes), jnp.asarray(lens)))
-    h, l, v = tk.pack_call_windows(torch.from_numpy(codes),
-                                   torch.from_numpy(lens))
+    h, l, v = tk.pack_call_windows_reference(torch.from_numpy(codes),
+                                             torch.from_numpy(lens))
     np.testing.assert_array_equal(v.numpy(), vx)
     np.testing.assert_array_equal(h.numpy().view(np.uint32), hx)
     np.testing.assert_array_equal(l.numpy().view(np.uint32), lx)
 
 
 def test_pack_call_windows_rejects_bad_width():
-    codes = torch.zeros((4, 32), dtype=torch.uint8)
-    with pytest.raises(ValueError):
-        tk.pack_call_windows(codes, torch.zeros(4, dtype=torch.int32), 48)
+    # L and W must be multiples of 16 with 0 < W <= L, on any device
+    rows = [torch.zeros(shape, dtype=torch.int32)
+            for shape in ((4, 3), (4,), (4,))]
+    for L, W in ((32, 48), (32, 0), (32, 24), (40, 16)):
+        with pytest.raises(ValueError, match="multiples of 16"):
+            tk.pack_call_windows_rows16(*rows, L, W)
