@@ -21,13 +21,21 @@ Phases, in order; any failure exits non-zero:
    uniform chunk's hit streams, as they are and with means spread over
    [200, 400), the probe's random streams, and testing.automaton_rows:
    the edge rows and random rows at W 48 and 304 with mad_floor 30.0 and
-   30.1, B 77, and a 64-row chunk of W 16384), the aux probe and the
-   distance mask (the real uniform chunk's windows on the smoke table
-   with its aux rows, whose 24-byte rows start off 16 bytes at odd
-   buckets; the odd-length flat run; testing.value_entries, a table with
-   var 0 and var > 0 keys and a hypothetical function; the mask in both
-   filter forms, len_sigma_window 2.0 and 1.5, at the chunk's lengths and
-   at lengths U[0, 4000), so |d| runs past 1024).  Bit-identical outputs
+   30.1, B 77, and a 64-row chunk of W 16384).  Then the random-row
+   ceiling: torch.index_select of the buckets that the uniform chunk's
+   valid windows hit, from the smoke table's 1 GiB of probe rows viewed
+   as 16-, 32- and 64-byte rows and from its 24-byte aux rows (each
+   probe's gather_ms).  Then the two fused probes, which read the
+   transfer rows themselves: the aux probe (the uniform chunk on the
+   smoke table with its aux rows, the pack's edge rows at W < L and
+   W = L, rows of testing.value_entries' keys with lengths past L at
+   L 512, W 512 and 496, and the keep-hits path's 2048 x 512) and the
+   distance mask from the distance rows (built here for the smoke table,
+   and at first use for distance_bench.py's table; the uniform chunk, the
+   same rows with lengths U[0, 4000), the edge rows, the value table's
+   key rows, and the distance path's 256 x 288 on its own table; both
+   filter forms, len_sigma_window 2.0 and 1.5), each timed at 8192 x 304
+   and at its path's shape, as issued and held.  Bit-identical outputs
    are required; hi/lo are compared under the call mask, the probe's fm
    under valid, the aux probe's words under found (and 0 elsewhere).
 3. the main path at full size: a ~20M-key WideKmerTable, 16384 uniform
@@ -40,21 +48,23 @@ Phases, in order; any failure exits non-zero:
    Each set is called once to warm up, then three timed times.
 3b. the keep-hits path (--debug-hits): 2048 uniform rows through
    call_batch(keep_hits=True), warmed up once, then three timed calls;
-   it fails unless probe_wide_aux launched and no plain version ran, and
-   every row's hits, calls and best call must equal the host route.  Every
-   pack and aux-probe call of the timed runs is kept (inputs and outputs)
-   and, once the launch counts are read, held bit for bit against the
-   plain version on the same card tensors.
+   it fails unless probe_wide_aux launched, and if the standalone pack
+   launched or any plain version ran; every row's hits, calls and best
+   call must equal the host route.  Every aux-probe call of the timed
+   runs is kept (inputs and outputs) and, once the launch counts are
+   read, held bit for bit against the plain version on the same card
+   tensors.
 3c. matrix distance at benchmarks/distance_bench.py's shape: a 600K-
    signature table, S = 2048 and 8192 (dense; warm-up, then three timed
    calls) and 20000 (tiled, tile 8192; one call) sequences through
    MatrixDistance(device="cuda").compute; it fails unless
-   probe_wide_distance launched and no plain version ran, and for 64
-   sampled sequences the pair counts with every other sequence must equal
-   the host route's count (host table probe, the reference's float64
-   filters).  Every pack and distance-mask call of each size's timed runs
-   is held to its plain version on the same inputs, as in 3b.  Also times
-   one dense block's float32 product.
+   probe_wide_distance launched, and if the standalone pack launched or
+   any plain version ran; for 64 sampled sequences the pair counts with
+   every other sequence must equal the host route's count (host table
+   probe, the reference's float64 filters).  Every distance-mask call of
+   each size's timed runs is held to its plain version on the same
+   inputs, as in 3b.  Also counts _pair_counts' k-mer blocks per call and
+   times one dense block's float32 product.
 4. one JSON line of per-kernel numbers (launches from one run of each
    kernel's own path, named in launches_of), the card line, and the
    contract line {"ok": true, "device": {...}} last.
@@ -207,7 +217,9 @@ def counting_plain_versions():
                                     "pack_call_windows_rows16_reference")),
                        (probe, ("probe_wide_reference",
                                 "probe_wide_aux_reference",
-                                "probe_wide_distance_reference"))):
+                                "lookup_aux_reference",
+                                "probe_wide_distance_reference",
+                                "lookup_distance_reference"))):
         for name in names:
             fn = getattr(mod, name)
             counts[name] = 0
@@ -400,6 +412,8 @@ def main() -> int:
     from signature_kmers_tpu_torch.golden.call import (find_best_call,
                                                        process_hits)
     from signature_kmers_tpu_torch.io.fasta import SequenceBatch
+    from signature_kmers_tpu_torch.models import matrix_distance as \
+        matrix_distance_mod
     from signature_kmers_tpu_torch.models.matrix_distance import \
         MatrixDistance
     from signature_kmers_tpu_torch.models.function_caller import FunctionCaller
@@ -489,8 +503,6 @@ def main() -> int:
                 n_, e_ = differences(name, out, plain_of[name](*a, **kw))
                 n, err = n + n_, max(err, e_)
             shapes = sorted({f"{a[1].shape[0]} rows at L {a[3]}, W {a[4]}"
-                             if name == "pack_call_windows_rows16" else
-                             "x".join(map(str, a[0].shape))
                              for a, _, _ in calls})
             print(f"{path}: {name} held to its plain version on the path's "
                   f"own {len(calls)} calls (shapes {', '.join(shapes)}): "
@@ -694,104 +706,248 @@ def main() -> int:
     print(f"device_automaton_packed on the same hits with means spread over "
           f"[200, 400): {spread_ms:.4f} ms [{card}]")
 
-    # aux probe and distance mask: the real uniform chunk's windows on the
-    # smoke table with its aux rows (2 slots: 24-byte aux rows, so every
-    # odd bucket's row starts off 16 bytes), the odd-length flat run, and
-    # a small table whose value words reach every filter branch (var 0 and
-    # > 0, means U[60, 3000), a hypothetical function), with lengths
-    # U[0, 4000) so that |d| runs past 1024
-    aux_t, ov_aux_t = table.aux_to_device(dev)
-    tabs4 = (packed_t, ov_packed_t, aux_t, ov_aux_t)
+    # ---- step 0: what random table rows cost on this card ----------------
+    # the buckets that the uniform chunk's valid windows hit on the smoke
+    # table, in chunk order, gathered by torch.index_select from the 1 GiB
+    # of probe rows viewed as 16-, 20-, 32- and 64-byte rows (the indices
+    # scaled into range), from the host's 24-byte aux rows and from the
+    # device's aux rows, padded to 32 bytes: the yardstick of each probe's
+    # random reads (gather_ms).  torch's gathers take one path for rows
+    # whose bytes are a multiple of 16 and another for the rest (20 and 24
+    # bytes here), which shows the card's own rate
     c_win = kmer_pack.pack_call_windows_rows16(c_rows, c_start, c_len, L, W)
+    c_bkt, _ = hashing.wide_bucket_tag_t(
+        *hashing.perm48_t(c_win[0], c_win[1], table.salt), table.bits)
+    idx = c_bkt[c_win[2]]
+    aux_t, ov_aux_t = table.aux_to_device(dev)
+    flat_rows = packed_t.view(-1)
+    aux24_t = torch.from_numpy(table.aux.view(np.int32)).to(dev)
+    gather_ms = {}
+    for label, rows_t, ix in (
+            ("16 B probe rows", flat_rows.view(-1, 4), idx // 1),
+            ("20 B rows", flat_rows[:flat_rows.numel() // 5 * 5].view(-1, 5),
+             idx * 4 // 5),
+            ("24 B aux rows", aux24_t, idx),
+            ("32 B padded aux rows", aux_t, idx),
+            ("32 B rows", flat_rows.view(-1, 8), idx // 2),
+            ("64 B rows", flat_rows.view(-1, 16), idx // 4)):
+        ms = time_ms(lambda: torch.index_select(rows_t, 0, ix), 20)
+        row_bytes = rows_t.shape[1] * 4
+        first = ix * row_bytes
+        sectors = int(((first + row_bytes - 1) // 32 - first // 32 + 1).sum())
+        gather_ms[label] = ms
+        print(f"random rows: index_select of {ix.numel()} {label} of "
+              f"{rows_t.numel() * 4 / 2**30:.2f} GiB: {ms:.4f} ms, "
+              f"{ix.numel() / ms / 1e6:.2f} G rows/s, {sectors} sectors "
+              f"touched, {sectors / ms / 1e6:.2f} G sectors/s "
+              f"({sectors * 32 / ms / 1e9:.3f} TB/s of sectors) [{card}]")
+    del aux24_t
+    report["probe_wide"]["gather_ms"] = gather_ms["16 B probe rows"]
+
+    # the aux probe, with the pack fused in: the real uniform chunk's rows
+    # on the smoke table with its aux rows (2 slots: 32-byte device rows,
+    # two 16-byte loads), the pack's edge rows (W < L and W = L, the
+    # tail group), rows of a value table's keys (lengths past L, the last
+    # sequence's groups in the row clamp; var 0 and > 0, means U[60,
+    # 3000), a hypothetical function), and the keep-hits path's own shape:
+    # 2048 uniform rows at L 512, W 512
+    tabs4 = (packed_t, ov_packed_t, aux_t, ov_aux_t)
     ve = kernel_cases.value_entries(200_000, args.seed + 5)
     vt = WideKmerTable.build(*ve)
     v_tabs = vt.to_device(dev, with_aux=True)
     v_kw = dict(salt=vt.salt, bits=vt.bits, ov_salt=vt.ov_salt,
                 ov_bits=vt.ov_bits, has_overflow=vt.ov_items > 0)
-    vq = tuple(torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
-                                else a).to(dev)
-               for a in kernel_cases.probe_queries(ve[0], ve[1], (B, W),
-                                                   args.seed + 6))
-    v_len = torch.from_numpy(
-        kernel_cases.distance_lengths(B, args.seed + 7)).to(dev)
-    odd_run = (qhi.view(-1)[:n_odd], qlo.view(-1)[:n_odd],
-               qvalid.view(-1)[:n_odd])
+    v_rows = rows_on_dev(kernel_cases.key_transfer_rows(
+        ve[0], ve[1], 512, 2048, args.seed + 6))
+    edge_rows = pack_cases[0][0]
+    kh_chunk = as_batch(uniform[:N_KEEP_HITS], "h")
+    kh_rows = rows_on_dev(kmer_pack.pack_u6_rows_host(
+        kh_chunk.codes, kh_chunk.offsets, N_KEEP_HITS, 512))
+    c_args = (c_rows, c_start, c_len, L, W)
+    kh_args = (*kh_rows, 512, 512)
     mism, err = 0, 0
-    for label, q, tabs, kw in (("uniform chunk", c_win, tabs4, probe_kw),
-                               ("odd flat run", odd_run, tabs4, probe_kw),
-                               ("value table", vq, v_tabs, v_kw)):
-        o2 = probe.probe_wide_aux_reference(*q, *tabs, **kw)
-        n_case, e_ = differences("probe_wide_aux",
-                                 probe.probe_wide_aux(*q, *tabs, **kw), o2)
-        mism, err = mism + n_case, max(err, e_)
-        found = o2[0]
-        bkt, _ = hashing.wide_bucket_tag_t(
-            *hashing.perm48_t(q[0], q[1], kw["salt"]), kw["bits"])
-        print(f"probe_wide_aux case {label}: {int(found.sum())} found of "
-              f"{q[0].numel()} windows ({int((found & (bkt & 1 == 1)).sum())}"
-              f" in odd main buckets), {n_case} words differ")
-    c_found_aux = probe.probe_wide_aux_reference(*c_win, *tabs4,
-                                                 **probe_kw)[0]
+    for label, rows, Lc, widths, tabs, kw in (
+            ("uniform chunk", c_args[:3], L, (W,), tabs4, probe_kw),
+            ("edge rows", edge_rows, L, (W, L), tabs4, probe_kw),
+            ("value table", v_rows, 512, (512, 496), v_tabs, v_kw),
+            ("keep-hits shape", kh_rows, 512, (512,), tabs4, probe_kw)):
+        for Wc in widths:
+            o2 = probe.probe_wide_aux_reference(*rows, Lc, Wc, *tabs, **kw)
+            n_case, e_ = differences(
+                "probe_wide_aux",
+                probe.probe_wide_aux(*rows, Lc, Wc, *tabs, **kw), o2)
+            mism, err = mism + n_case, max(err, e_)
+            print(f"probe_wide_aux case {label} B={rows[1].shape[0]} L={Lc}"
+                  f" W={Wc}: {int(o2[0].sum())} found, {n_case} words "
+                  f"differ")
     n_win_c = B * W
     n_valid_c = int(c_win[2].sum())
-    n_found_c = int(c_found_aux.sum())
+    n_found_c = int(probe.probe_wide_aux_reference(*c_args, *tabs4,
+                                                   **probe_kw)[0].sum())
     c_main, _ = probe.probe_wide_reference(
         *c_win, packed_t, ov_packed_t, **dict(probe_kw, has_overflow=False))
     n_leaf_c = (int((c_win[2] & ~c_main).sum()) if table.ov_items > 0
                 else 0)
     leaf_c = 0 if leaf_in_l2 else 32 * n_leaf_c
-
-    def aux_call():
-        return probe.probe_wide_aux(*c_win, *tabs4, **probe_kw)
-
-    # bytes: the probe's (hi, lo, valid in, found and fm out per window,
-    # one main-table sector per valid window), plus one 32-byte aux sector
-    # per found window and r0, r1, r2 out (12 bytes per window)
-    record("probe_wide_aux", mism, err, time_ms(aux_call, 20),
+    # bytes, the fused function: 12 per transfer row that the windows
+    # cover and 8 per sequence in, found + fm + r0..r2 out (17 per
+    # window), one main-table sector per valid window and one aux sector
+    # per found window (what the function needs; the kernel reads the aux
+    # row of every valid window).  The count when the pack ran as its own
+    # kernel before the probe:
+    # the pack's bytes, then 26 per window + the same sectors
+    pack_bytes = 12 * B * (W // 16) + 8 * B
+    record("probe_wide_aux", mism, err,
+           time_ms(lambda: probe.probe_wide_aux(*c_args, *tabs4, **probe_kw),
+                   20),
            time_ms(lambda: probe.probe_wide_aux_reference(
-               *c_win, *tabs4, **probe_kw), 3),
-           n_win_c * (14 + 12) + 32 * (n_valid_c + n_found_c) + leaf_c,
-           45 * (n_valid_c + n_leaf_c))
+               *c_args, *tabs4, **probe_kw), 3),
+           pack_bytes + 17 * n_win_c + 32 * (n_valid_c + n_found_c) + leaf_c,
+           20 * n_win_c + 45 * (n_valid_c + n_leaf_c))
+    aux_before = bound_ms(pack_bytes + 9 * n_win_c + n_win_c * 26
+                          + 32 * (n_valid_c + n_found_c) + leaf_c, 0)[0]
+    kh_valid = int(kmer_pack.pack_call_windows_rows16_reference(
+        *kh_args)[2].sum())
+    kh_found = int(probe.probe_wide_aux_reference(*kh_args, *tabs4,
+                                                  **probe_kw)[0].sum())
+    report["probe_wide_aux"].update(
+        gather_ms=(gather_ms["16 B probe rows"]
+                   + gather_ms["32 B padded aux rows"]),
+        bound_ms_before=aux_before,
+        held_ms=time_ms(lambda: probe.probe_wide_aux(*c_args, *tabs4,
+                                                     **probe_kw), 20,
+                        hold=True),
+        path_shape=f"{N_KEEP_HITS} x 512",
+        path_ms=time_ms(lambda: probe.probe_wide_aux(*kh_args, *tabs4,
+                                                     **probe_kw), 20),
+        path_held_ms=time_ms(lambda: probe.probe_wide_aux(
+            *kh_args, *tabs4, **probe_kw), 20, hold=True),
+        path_plain_ms=time_ms(lambda: probe.probe_wide_aux_reference(
+            *kh_args, *tabs4, **probe_kw), 3),
+        path_bound_ms=bound_ms(
+            12 * N_KEEP_HITS * 32 + 8 * N_KEEP_HITS
+            + 17 * N_KEEP_HITS * 512 + 32 * (kh_valid + kh_found), 0)[0])
+    r = report["probe_wide_aux"]
     print(f"probe_wide_aux on the uniform chunk: {n_win_c} windows, "
-          f"{n_valid_c} valid, {n_found_c} found, {n_leaf_c} leaf lookups "
-          f"[{card}]")
+          f"{n_valid_c} valid, {n_found_c} found ({n_found_c / n_valid_c:.3f}"
+          f" of valid: the rest waste their aux read), {n_leaf_c} leaf "
+          f"lookups; {r['ms']:.4f} ms as issued, {r['held_ms']:.4f} ms held, "
+          f"bound {r['bound_ms']:.4f} ms (before the pack was fused in: "
+          f"{aux_before:.4f}), gather yardstick {r['gather_ms']:.4f} ms; at "
+          f"the keep-hits shape {r['path_shape']} ({kh_valid} valid, "
+          f"{kh_found} found): {r['path_ms']:.4f} ms as issued, "
+          f"{r['path_held_ms']:.4f} held, plain {r['path_plain_ms']:.4f}, "
+          f"bound {r['path_bound_ms']:.4f} [{card}]")
 
-    # the distance mask: the smoke table's functions are all below 50000,
-    # so the hypothetical function is taken from the chunk's first hit
+    # the distance mask, with the pack fused in, from the distance rows
+    # (built here for the smoke table: 32-byte rows, one sector per valid
+    # window): the uniform chunk (the hypothetical function taken from its
+    # first hit, since the smoke table's functions are all below 50000),
+    # the same rows with lengths U[0, 4000) (past L, and |d| past 1024),
+    # the edge rows, the value table's key rows, and the distance path's
+    # own shape: 256 sequences of distance_bench.py's table at L 512, W 288
+    t0 = time.perf_counter()
+    drows_t = table.distance_rows_to_device(dev)
+    torch.cuda.synchronize()
+    print(f"distance rows of the smoke table: "
+          f"{drows_t[0].numel() * 4 / 2**30:.2f} GiB + "
+          f"{drows_t[1].numel() * 4 / 2**20:.1f} MiB leaf, built in "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    v_drows = vt.distance_rows_to_device(dev)
+    md_table, md_fidx, md_sequences = build_distance_workload(args.seed + 9)
+    md = MatrixDistance(md_table, md_fidx, DistanceConfig(), DeviceConfig(),
+                        device="cuda")
+    t0 = time.perf_counter()
+    md_drows = md.device_tables()
+    torch.cuda.synchronize()
+    print(f"distance table: {md_table.n_items} keys, bits {md_table.bits},"
+          f" {md_table.slots} slots, {md_table.ov_items} overflow keys; "
+          f"distance rows {md_drows[0].numel() * 4 / 2**20:.1f} MiB, built "
+          f"at first use in {time.perf_counter() - t0:.2f} s [{card}]")
+    d_codes = md_sequences(256)
+    d_rows = rows_on_dev(kmer_pack.pack_u6_rows_host(
+        d_codes.reshape(-1), np.arange(257) * DIST_LEN, 256, 512))
+    d_path = (*d_rows, 512, 288)
     hypo_smoke = int((c_fm[c_found][0] >> 16) & 0xFFFF)
+    sm_geo = dict(probe_kw, slots=table.slots, ov_slots=table.ov_slots)
+    v_geo = dict(v_kw, slots=vt.slots, ov_slots=vt.ov_slots)
+    u_len = torch.from_numpy(
+        kernel_cases.distance_lengths(B, args.seed + 7)).to(dev)
     forms = ((2.0, 0.1), (1.5, 0.1))
     mism, err = 0, 0
-    for label, q, lens, tabs, kw, hypo in (
-            ("uniform chunk", c_win, c_len, tabs4, probe_kw, hypo_smoke),
-            ("uniform chunk, lengths U[0, 4000)", c_win, v_len, tabs4,
-             probe_kw, hypo_smoke),
-            ("value table", vq, v_len, v_tabs, v_kw,
-             kernel_cases.HYPO_FUNCTION)):
+    for label, args_, drows, geo, hypo in (
+            ("uniform chunk", c_args, drows_t, sm_geo, hypo_smoke),
+            ("uniform chunk, lengths U[0, 4000)",
+             (c_rows, c_start, u_len, L, W), drows_t, sm_geo, hypo_smoke),
+            ("edge rows, W = L", (*edge_rows, L, L), drows_t, sm_geo,
+             hypo_smoke),
+            ("value table", (*v_rows, 512, 496), v_drows, v_geo,
+             kernel_cases.HYPO_FUNCTION),
+            ("distance shape", d_path, md_drows, md.distance_geometry(),
+             md.hypo_index)):
         for w_, frac in forms:
-            fkw = dict(kw, hypo=hypo, len_sigma_window=w_,
+            fkw = dict(geo, hypo=hypo, len_sigma_window=w_,
                        zero_var_len_frac=frac)
-            m2 = probe.probe_wide_distance_reference(*q, lens, *tabs, **fkw)
+            m2 = probe.probe_wide_distance_reference(*args_, *drows, **fkw)
             n_, e_ = differences(
                 "probe_wide_distance",
-                probe.probe_wide_distance(*q, lens, *tabs, **fkw), m2)
+                probe.probe_wide_distance(*args_, *drows, **fkw), m2)
             mism, err = mism + n_, max(err, e_)
             print(f"probe_wide_distance case {label}, len_sigma_window {w_}:"
                   f" {int(m2.sum())} windows kept, {n_} differ")
-    d_kw = dict(probe_kw, hypo=hypo_smoke, len_sigma_window=2.0,
+    d_kw = dict(sm_geo, hypo=hypo_smoke, len_sigma_window=2.0,
                 zero_var_len_frac=0.1)
-
-    # bytes: hi, lo, valid in and the mask out per window (10), the row
-    # lengths (4 per row), one main-table sector per valid window and one
-    # aux sector per found window
+    ov_d_bytes = drows_t[1].numel() * 4
+    leaf_d = 0 if ov_d_bytes <= L2_BYTES else 32 * n_leaf_c
+    d_valid = int(kmer_pack.pack_call_windows_rows16_reference(
+        *d_path)[2].sum())
+    md_kw = md.distance_geometry()
+    # bytes, the fused function: the transfer rows (12 per 16 codes the
+    # windows cover, 8 per sequence), the mask out (1 per window), one
+    # 32-byte distance-row sector per valid window.  The count when the
+    # pack ran as its own kernel: the pack's bytes (24.3 MB), then 10 per
+    # window + 4 per row + a main sector per valid and an aux sector per
+    # found window (162.7 MB)
     record("probe_wide_distance", mism, err,
-           time_ms(lambda: probe.probe_wide_distance(
-               *c_win, c_len, *tabs4, **d_kw), 20),
+           time_ms(lambda: probe.probe_wide_distance(*c_args, *drows_t,
+                                                     **d_kw), 20),
            time_ms(lambda: probe.probe_wide_distance_reference(
-               *c_win, c_len, *tabs4, **d_kw), 3),
-           n_win_c * 10 + 4 * B + 32 * (n_valid_c + n_found_c) + leaf_c,
-           45 * (n_valid_c + n_leaf_c))
+               *c_args, *drows_t, **d_kw), 3),
+           pack_bytes + n_win_c + 32 * n_valid_c + leaf_d,
+           20 * n_win_c + 45 * (n_valid_c + n_leaf_c))
+    d_before = bound_ms(pack_bytes + 9 * n_win_c + n_win_c * 10 + 4 * B
+                        + 32 * (n_valid_c + n_found_c) + leaf_c, 0)[0]
+    report["probe_wide_distance"].update(
+        gather_ms=gather_ms["32 B rows"], bound_ms_before=d_before,
+        held_ms=time_ms(lambda: probe.probe_wide_distance(
+            *c_args, *drows_t, **d_kw), 20, hold=True),
+        path_shape="256 x 288",
+        path_ms=time_ms(lambda: probe.probe_wide_distance(
+            *d_path, *md_drows, **md_kw), 50),
+        path_held_ms=time_ms(lambda: probe.probe_wide_distance(
+            *d_path, *md_drows, **md_kw), 50, hold=True),
+        path_plain_ms=time_ms(lambda: probe.probe_wide_distance_reference(
+            *d_path, *md_drows, **md_kw), 5),
+        path_bound_ms=bound_ms(12 * 256 * 32 + 8 * 256 + 256 * 288
+                               + 32 * d_valid, 0)[0])
+    r = report["probe_wide_distance"]
+    print(f"probe_wide_distance on the uniform chunk: {r['ms']:.4f} ms as "
+          f"issued, {r['held_ms']:.4f} ms held, bound {r['bound_ms']:.4f} ms"
+          f" (before the pack was fused in: {d_before:.4f}), gather "
+          f"yardstick {r['gather_ms']:.4f} ms; at the distance path's shape "
+          f"{r['path_shape']} ({d_valid} valid): {r['path_ms']:.4f} ms as "
+          f"issued, {r['path_held_ms']:.4f} held, plain "
+          f"{r['path_plain_ms']:.4f}, bound {r['path_bound_ms']:.4f} "
+          f"[{card}]")
     if any(r["mismatches"] for r in report.values()):
         fail(f"kernel/plain mismatch: {report}")
+    # phase 2's tables go before the paths' peaks are read: the call and
+    # keep-hits paths hold their caller's copies, the distance path its
+    # distance rows
+    del (packed_t, ov_packed_t, aux_t, ov_aux_t, tabs4, tabs, flat_rows,
+         rows_t, drows_t, v_tabs, v_drows)
+    print(f"device memory held after phase 2 (the distance path's table "
+          f"and test rows): {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
 
     # ---- phase 3: the main path at full size -----------------------------
     caller = FunctionCaller(table, function_index, cfg,
@@ -894,7 +1050,7 @@ def main() -> int:
     for w in all_wrappers.values():
         w.launches = 0
     with counting_plain_versions() as plain, keeping_kernel_calls(
-            ("pack_call_windows_rows16", "probe_wide_aux")) as kh_kept:
+            ("probe_wide_aux",)) as kh_kept:
         for rep in range(3):
             t0 = time.perf_counter()
             kh_res = caller.call_batch(kh, keep_hits=True)
@@ -907,9 +1063,10 @@ def main() -> int:
                   f"[{card}]")
     kh_launches = {n: w.launches for n, w in all_wrappers.items()}
     print(f"keep-hits launches: {kh_launches}; plain versions: {plain}")
-    for name in ("pack_call_windows_rows16", "probe_wide_aux"):
-        if kh_launches[name] <= 0:
-            fail(f"{name} was not launched on the keep-hits path")
+    if kh_launches["probe_wide_aux"] <= 0:
+        fail("probe_wide_aux was not launched on the keep-hits path")
+    if kh_launches["pack_call_windows_rows16"]:
+        fail("the keep-hits path launched the standalone pack")
     if any(plain.values()):
         fail(f"the keep-hits path ran plain versions: {plain}")
     hold_path_calls("keep-hits", kh_kept)
@@ -934,20 +1091,26 @@ def main() -> int:
         fail(f"keep-hits: {bad} rows differ from the host route")
 
     # ---- phase 3c: matrix distance at distance_bench.py's shape -----------
+    # (md and its table were made in phase 2)
     t_phase = time.perf_counter()
-    md_table, md_fidx, md_sequences = build_distance_workload(args.seed + 9)
-    md = MatrixDistance(md_table, md_fidx, DistanceConfig(), DeviceConfig(),
-                        device="cuda")
-    print(f"distance table: {md_table.n_items} keys, bits {md_table.bits},"
-          f" {md_table.slots} slots, {md_table.ov_items} overflow keys")
     tf32_before = torch.backends.cuda.matmul.allow_tf32
     dist_launches = {}  # S -> the launches of that size's timed calls
+    dist_blocks = {}  # S -> _pair_counts blocks per call
     # host-clock split of compute: the gather (pack + distance mask per
     # 256-row chunk, the mask's D2H copy) and the pair counting (host
     # dedup, densify and products on the card, nonzero cells back)
     split.update(gather=0.0, pairs=0.0)
     md._gather = timed("gather", md._gather)
     md._pairs = timed("pairs", md._pairs)
+    # the k-mer blocks that _pair_counts densifies and multiplies
+    blocks = [0]
+    plain_incidence = matrix_distance_mod._incidence
+
+    def counted_incidence(*a):
+        blocks[0] += 1
+        return plain_incidence(*a)
+
+    matrix_distance_mod._incidence = counted_incidence
     for S, reps in DIST_SIZES:
         codes = md_sequences(S)
         batch = SequenceBatch(codes.reshape(-1),
@@ -961,9 +1124,9 @@ def main() -> int:
             w.launches = 0
         times = []
         split.update(gather=0.0, pairs=0.0)
+        blocks[0] = 0
         with counting_plain_versions() as plain, keeping_kernel_calls(
-                ("pack_call_windows_rows16",
-                 "probe_wide_distance")) as d_kept:
+                ("probe_wide_distance",)) as d_kept:
             for _ in range(reps):
                 t0 = time.perf_counter()
                 res = md.compute([batch])
@@ -981,10 +1144,14 @@ def main() -> int:
               f"{launched['pack_call_windows_rows16']}); plain versions "
               f"{sum(plain.values())}; per call gather "
               f"{split['gather'] / reps:.4f} s, pairs "
-              f"{split['pairs'] / reps:.4f} s; peak device memory "
+              f"{split['pairs'] / reps:.4f} s ({blocks[0] / reps:g} k-mer "
+              f"blocks densified and multiplied); peak device memory "
               f"{peak:.3f} GiB [{card}]")
+        dist_blocks[S] = blocks[0] / reps
         if launched["probe_wide_distance"] <= 0:
             fail(f"probe_wide_distance was not launched at S={S}")
+        if launched["pack_call_windows_rows16"]:
+            fail(f"the distance path launched the standalone pack at S={S}")
         if any(plain.values()):
             fail(f"the distance path ran plain versions at S={S}: {plain}")
         if torch.backends.cuda.matmul.allow_tf32 != tf32_before:
@@ -1007,6 +1174,7 @@ def main() -> int:
               f"count: {n_shared} sharing pairs, {bad} counts differ")
         if bad:
             fail(f"distance S={S}: {bad} pair counts differ from the host")
+    matrix_distance_mod._incidence = plain_incidence
     print(f"distance phase: {time.perf_counter() - t_phase:.1f} s wall "
           f"[{card}]")
     # the product of one dense block at S = 8192 (a library call: the JAX
@@ -1019,7 +1187,8 @@ def main() -> int:
     flop = 2 * 8192 ** 3
     print(f"_pair_counts block product (8192 x 8192 x 8192, float32, "
           f"torch.addmm_): {mm_ms:.4f} ms, {flop / mm_ms / 1e9:.1f} TFLOP/s; "
-          f"float32 bound {flop / SCALAR_OPS_PER_S * 1e3:.4f} ms [{card}]")
+          f"float32 bound {flop / SCALAR_OPS_PER_S * 1e3:.4f} ms; "
+          f"{dist_blocks[8192]:g} blocks per S = 8192 call [{card}]")
 
     # ---- phase 4: report ---------------------------------------------------
     sources = {
@@ -1054,13 +1223,18 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in sources.items():
         r = report[name]
+        extra = {k: r[k] for k in ("held_ms", "bound_ms_before",
+                                   "path_shape", "path_ms", "path_held_ms",
+                                   "path_plain_ms", "path_bound_ms")
+                 if k in r}
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces, launches=path_launches[name],
                             launches_of=launches_of[name],
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None,
-                            mismatches=r["mismatches"]))
+                            gather_ms=r.get("gather_ms"),
+                            mismatches=r["mismatches"], **extra))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

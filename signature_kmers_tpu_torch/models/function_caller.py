@@ -15,8 +15,9 @@ do not fit the 16-bit packing) are re-called exactly on the host through
 the table's host probe and the golden automaton.
 
 With keep_hits (--debug-hits) or order_constraint the caller gathers every
-hit with its value words instead (gather_hits_batch: the same pack, then
-probe_wide_aux) and runs the golden automaton and scoring on the host.
+hit with its value words instead (gather_hits_batch: probe_wide_aux, which
+reads the transfer rows itself) and runs the golden automaton and scoring
+on the host.
 
 On a CUDA device every step above runs its kernel; with device="cpu" the
 same path runs each kernel's plain PyTorch version.
@@ -122,8 +123,9 @@ class FunctionCaller:
             if config.ignore_hypothetical:
                 # the reference exits here (call_functions.tcc:269-274)
                 raise ValueError("Cannot find hypothetical protein index")
-        self._tables = table.to_device(self.device)
-        self._aux = None  # the aux rows, uploaded at first use
+        # the probe and aux rows, uploaded at first use (device_tables)
+        self._tables = None
+        self._aux = None
         self._fmeta = None
         # device-automaton fallback accounting: rows processed vs rows
         # re-called on the host (REC_CAP overflow / 16-bit packing guard)
@@ -176,7 +178,7 @@ class FunctionCaller:
         hi, lo, valid = kmer_pack.pack_call_windows_rows16(
             packed_rows, start_row, lengths, L, W)
         found, fm = probe.probe_wide(
-            hi, lo, valid, *self._tables, **self.probe_geometry(),
+            hi, lo, valid, *self.device_tables(), **self.probe_geometry(),
             ignore_function=(self.hypo_index if cfg.ignore_hypothetical
                              else -1))
         return automaton.device_automaton_packed(
@@ -190,27 +192,26 @@ class FunctionCaller:
                     ov_bits=t.ov_bits, has_overflow=t.ov_items > 0)
 
     def device_tables(self, with_aux: bool = False) -> tuple:
-        """(packed, ov_packed[, aux, ov_aux]) on the caller's device; the
-        aux rows go up at first use, since the fused call path never
-        reads them."""
+        """(packed, ov_packed[, aux, ov_aux]) on the caller's device, each
+        uploaded at first use: matrix distance reads neither (it holds
+        distance rows), and the fused call path never reads the aux
+        rows."""
+        if self._tables is None:
+            self._tables = self.table.to_device(self.device)
         if not with_aux:
             return self._tables
         if self._aux is None:
             self._aux = self.table.aux_to_device(self.device)
         return self._tables + self._aux
 
-    def pack_windows(self, codes: np.ndarray, offsets: np.ndarray,
-                     rows: int, L: int, W: int):
+    def transfer_rows(self, codes: np.ndarray, offsets: np.ndarray,
+                      rows: int, L: int):
         """Concatenated codes + offsets (a sub-batch's, as on the fused
-        path; L a multiple of 16) -> (hi, lo, valid, lengths) on the
-        device, (rows, W) for the first W windows: the sequences go up as
-        transfer rows (pack_u6_rows_host) and pack_call_windows_rows16
-        packs them."""
-        t_rows, start_row, lens = (
-            self._to_device(a) for a in kmer_pack.pack_u6_rows_host(
-                codes, offsets, rows, L))
-        return kmer_pack.pack_call_windows_rows16(t_rows, start_row, lens,
-                                                  L, W) + (lens,)
+        path; L a multiple of 16) -> (t_rows, start_row, lengths) on the
+        device (pack_u6_rows_host), as the kernels that read transfer
+        rows take them."""
+        return tuple(self._to_device(a) for a in kmer_pack.pack_u6_rows_host(
+            codes, offsets, rows, L))
 
     def _function_meta(self):
         """Per-function multipart flags and lexicographic ranks for the
@@ -512,13 +513,14 @@ class FunctionCaller:
                      rows: int, L: int, need_aux: bool):
         """gather_hits_batch from concatenated codes + offsets: (rows, L)
         arrays."""
-        hi, lo, valid, _ = self.pack_windows(codes, offsets, rows, L, L)
+        t_rows = self.transfer_rows(codes, offsets, rows, L)
         if need_aux:
-            out = probe.probe_wide_aux(hi, lo, valid,
+            out = probe.probe_wide_aux(*t_rows, L, L,
                                        *self.device_tables(with_aux=True),
                                        **self.probe_geometry())
         else:
-            out = probe.probe_wide(hi, lo, valid, *self._tables,
+            hi, lo, valid = kmer_pack.pack_call_windows_rows16(*t_rows, L, L)
+            out = probe.probe_wide(hi, lo, valid, *self.device_tables(),
                                    **self.probe_geometry())
         out = [o.cpu().numpy() for o in out]
         found, fm = out[0], out[1].view(np.uint32)

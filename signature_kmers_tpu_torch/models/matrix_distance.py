@@ -3,11 +3,13 @@
 The reference builds k-mer -> {sequence ids} sets and increments a nested
 map for every id pair per k-mer (ref: matrix_distance.h:45-148,
 kmers-matrix-distance.cc:118-196).  Here the hits are gathered on the
-device, filtered there and only the (B, W) found mask comes back
-(pack_call_windows_rows16, then probe_wide_distance); the host rebuilds the
-hit keys from the codes, keeps each (k-mer, sequence) pair once, and the
-(distinct k-mer x sequence) incidence matrix A is densified on the device
-block by block, accumulating C = sum_b A_b^T A_b with float32 products.
+device, filtered there and only the (B, W) found mask comes back (one
+probe_wide_distance launch per chunk: it reads the transfer rows and one
+distance row per window, built from the table at first use); the host
+rebuilds the hit keys from the codes, keeps each (k-mer, sequence) pair
+once, and the (distinct k-mer x sequence) incidence matrix A is densified
+on the device block by block, accumulating C = sum_b A_b^T A_b with
+float32 products.
 
 Filter semantics match the reference:
 - ignore_hypothetical is forced on (matrix_distance.h:88);
@@ -88,6 +90,24 @@ class MatrixDistance:
             device_config, device=device)
         self.device = self.caller.device
         self.hypo_index = self.caller.hypo_index
+        self._drows = None  # the distance rows, built at first use
+
+    def device_tables(self) -> tuple:
+        """(drows, ov_drows): the table's distance rows on the device
+        (WideKmerTable.distance_rows_to_device), built at first use; the
+        distance path holds no other table rows."""
+        if self._drows is None:
+            self._drows = self.table.distance_rows_to_device(self.device)
+        return self._drows
+
+    def distance_geometry(self) -> dict:
+        """The table geometry and the filter as probe_wide_distance takes
+        them."""
+        t = self.table
+        return dict(self.caller.probe_geometry(), slots=t.slots,
+                    ov_slots=t.ov_slots, hypo=self.hypo_index,
+                    len_sigma_window=self.config.len_sigma_window,
+                    zero_var_len_frac=self.config.zero_var_len_frac)
 
     def compute(self, batches: list[fasta_io.SequenceBatch]
                 ) -> DistanceResult:
@@ -171,14 +191,10 @@ class MatrixDistance:
         nat = int(sub.lengths.max()) if len(sub) else k
         L = function_caller_mod.bucket_length(sub)
         W = min(L, max(16, -(-(max(nat, k) - k + 1) // 16) * 16))
-        caller = self.caller
-        hi, lo, valid, lens = caller.pack_windows(sub.codes, sub.offsets,
-                                                  len(sub), L, W)
-        mask = probe.probe_wide_distance(
-            hi, lo, valid, lens, *caller.device_tables(with_aux=True),
-            **caller.probe_geometry(), hypo=self.hypo_index,
-            len_sigma_window=self.config.len_sigma_window,
-            zero_var_len_frac=self.config.zero_var_len_frac)
+        t_rows = self.caller.transfer_rows(sub.codes, sub.offsets, len(sub),
+                                           L)
+        mask = probe.probe_wide_distance(*t_rows, L, W, *self.device_tables(),
+                                         **self.distance_geometry())
         return mask.cpu().numpy()
 
     def _pair_counts(self, kmer_id: np.ndarray, seqs: np.ndarray,

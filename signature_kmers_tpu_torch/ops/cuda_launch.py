@@ -62,14 +62,16 @@ ENTRY_POINTS = {
         "probe_wide", "skt_probe_wide",
         [PTR, PTR, PTR, LONG, PTR, INT, UINT, INT, PTR, INT, UINT, INT, INT,
          INT, PTR, PTR]),
+    # the fused probes take the pack's arguments first: rows, R,
+    # start_row, lengths, B, L, W
     "probe_wide_aux": (
         "probe_wide", "skt_probe_wide_aux",
-        [PTR, PTR, PTR, LONG, PTR, INT, UINT, INT, PTR, PTR, INT, UINT, INT,
-         INT, PTR, PTR, PTR, PTR, PTR, PTR]),
+        [PTR, INT, PTR, PTR, INT, INT, INT, PTR, INT, UINT, INT, PTR, PTR,
+         INT, UINT, INT, INT, PTR, PTR, PTR, PTR, PTR, PTR]),
     "probe_wide_distance": (
         "probe_wide", "skt_probe_wide_distance",
-        [PTR, PTR, PTR, LONG, INT, PTR, PTR, INT, UINT, INT, PTR, PTR, INT,
-         UINT, INT, INT, PTR, INT, INT, FLOAT, FLOAT, PTR]),
+        [PTR, INT, PTR, PTR, INT, INT, INT, PTR, INT, UINT, INT, PTR, INT,
+         UINT, INT, INT, INT, INT, FLOAT, FLOAT, PTR]),
     "device_automaton_packed": (
         "automaton", "skt_automaton_packed",
         [PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, FLOAT, PTR]),

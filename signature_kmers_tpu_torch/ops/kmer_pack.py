@@ -180,6 +180,27 @@ def pack_call_windows_rows16_reference(packed_rows: torch.Tensor,
         expand_rows16(packed_rows, start_row, lengths, L), lengths, W)
 
 
+def check_widths(L: int, W: int) -> None:
+    """Raise unless L and W are multiples of 16 with 0 < W <= L (the
+    kernels that read transfer rows take 16 windows per thread)."""
+    if L % ALIGN or W % ALIGN or not 0 < W <= L:
+        raise ValueError(f"need L and W multiples of {ALIGN} with "
+                         f"0 < W <= L, got L {L}, W {W}")
+
+
+def check_rows(packed_rows: torch.Tensor, start_row: torch.Tensor,
+               lengths: torch.Tensor) -> tuple[int, int]:
+    """The transfer rows' checks before a kernel reads them -> (B, R)."""
+    B = start_row.shape[0]
+    R = packed_rows.shape[0]
+    if R == 0:
+        raise ValueError("packed_rows: no rows to clamp the indices to")
+    cl.check(packed_rows, "packed_rows", torch.int32, (R, 3))
+    cl.check(start_row, "start_row", torch.int32, (B,))
+    cl.check(lengths, "lengths", torch.int32, (B,))
+    return B, R
+
+
 def pack_call_windows_rows16(packed_rows: torch.Tensor,
                              start_row: torch.Tensor, lengths: torch.Tensor,
                              L: int, W: int):
@@ -190,19 +211,11 @@ def pack_call_windows_rows16(packed_rows: torch.Tensor,
     lengths: (B,) int32; L and W multiples of 16 with 0 < W <= L.  hi and
     lo are (B, W) int32 bit containers of the 24-bit words; valid is bool.
     """
-    if L % ALIGN or W % ALIGN or not 0 < W <= L:
-        raise ValueError(f"need L and W multiples of {ALIGN} with "
-                         f"0 < W <= L, got L {L}, W {W}")
+    check_widths(L, W)
     if not cl.on_cuda(packed_rows, start_row, lengths):
         return pack_call_windows_rows16_reference(packed_rows, start_row,
                                                   lengths, L, W)
-    B = start_row.shape[0]
-    R = packed_rows.shape[0]
-    if R == 0:
-        raise ValueError("packed_rows: no rows to clamp the indices to")
-    cl.check(packed_rows, "packed_rows", torch.int32, (R, 3))
-    cl.check(start_row, "start_row", torch.int32, (B,))
-    cl.check(lengths, "lengths", torch.int32, (B,))
+    B, R = check_rows(packed_rows, start_row, lengths)
     hi = torch.empty((B, W), dtype=torch.int32, device=start_row.device)
     lo = torch.empty_like(hi)
     valid = torch.empty((B, W), dtype=torch.bool, device=start_row.device)

@@ -32,6 +32,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 def _target(src: Path, cmd: list[str]) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    # the headers beside a source may be included by it
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(cmd).encode())
     return BUILD_DIR / f"{src.stem}_{h.hexdigest()[:16]}.so"
 

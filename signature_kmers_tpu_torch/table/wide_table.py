@@ -12,6 +12,18 @@ split covers all 48 bits, so tag equality inside a bucket IS key equality.
 A slot stores (tag, fm) with fm = function<<16 | mean; the full value
 words live in the parallel ``aux`` rows (host lookups and the aux probe).
 
+Matrix distance reads one more device layout, built from those two at
+first use: a "distance row" per bucket holds everything its filter reads,
+
+    distance row = tag x slots | fm x slots | var16 pairs x ceil(slots/2)
+
+padded with zeros to a multiple of 8 words (32 bytes: one DRAM sector at
+2 slots, two at 4), where var16 = v2 & 0xFFFF and a pair word holds slot
+2k in its low and slot 2k+1 in its high half.  On the device the main
+store's aux rows are padded to a multiple of 4 words (aux_row_words: 32
+bytes at 2 slots, so that no row crosses a sector; 48, as on the host, at
+4); the leaf's aux rows are not.
+
 Keys that exceed their bucket's slots (the Poisson tail) go to the
 overflow leaf: the SAME tagged single-hash layout with bucket count and
 slot width chosen from the data so that every overflow key fits.  When a
@@ -152,6 +164,32 @@ def _occupied_tagged(packed, aux, salt: int, bits: int):
             a[b_idx, 2, s_idx])
 
 
+def aux_row_words(slots: int) -> int:
+    """Words per main aux row on the device (module docstring): 8 at 2
+    slots, 12 at 4."""
+    return -(-3 * slots // 4) * 4
+
+
+def distance_row_words(slots: int) -> int:
+    """Words per distance row (module docstring): 8 at 2 slots, 16 at 4."""
+    return -(-(2 * slots + -(-slots // 2)) // 8) * 8
+
+
+def distance_rows(packed: np.ndarray, aux: np.ndarray) -> np.ndarray:
+    """(n, distance_row_words(S)) uint32 distance rows of a tagged store's
+    probe rows (n, 2S) and aux rows (n, 3S)."""
+    S = packed.shape[1] // 2
+    out = np.zeros((packed.shape[0], distance_row_words(S)), np.uint32)
+    out[:, :2 * S] = packed
+    var = aux[:, 2 * S:3 * S] & np.uint32(0xFFFF)
+    for k in range(0, S, 2):
+        word = var[:, k].copy()
+        if k + 1 < S:
+            word |= var[:, k + 1] << np.uint32(16)
+        out[:, 2 * S + k // 2] = word
+    return out
+
+
 def leaf_salt(hi, lo, bits: int):
     """Best overflow salt at a fixed bucket count: (salt, max_occupancy)."""
     best = None
@@ -216,6 +254,10 @@ class WideKmerTable:
     @property
     def slots(self) -> int:
         return int(self.packed.shape[1]) // 2
+
+    @property
+    def ov_slots(self) -> int:
+        return int(self.ov_packed.shape[1]) // 2
 
     # -- construction --------------------------------------------------------
 
@@ -340,15 +382,26 @@ class WideKmerTable:
     def to_device(self, device, with_aux: bool = False):
         """Table words as int32 tensors (bit containers of the uint32
         words) on ``device``: (packed, ov_packed), or (packed, ov_packed,
-        aux, ov_aux) with_aux.  The aux rows (3*slots words per bucket)
-        are 1.5x the probe rows, so they go up only when asked."""
+        aux, ov_aux) with_aux.  The aux rows (aux_to_device) are 1.5-2x
+        the probe rows, so they go up only when asked."""
         tables = _words_on(device, self.packed, self.ov_packed)
         return tables + self.aux_to_device(device) if with_aux else tables
 
     def aux_to_device(self, device):
         """(aux, ov_aux) alone, for a caller that already holds the probe
-        rows on ``device``."""
-        return _words_on(device, self.aux, self.ov_aux)
+        rows on ``device``: the main store's rows padded to
+        aux_row_words(slots) words (2 GiB at bits 26 and 2 slots, 1.5 GiB
+        unpadded), the leaf's as they are."""
+        return (_rows_on(device, self.aux, aux_row_words(self.slots),
+                         lambda a: a),
+                *_words_on(device, self.ov_aux))
+
+    def distance_rows_to_device(self, device):
+        """(drows, ov_drows): the main store's and the leaf's distance rows
+        as int32 tensors on ``device`` (module docstring; 2 GiB at bits 26
+        and 2 slots), built on the host a slice of buckets at a time."""
+        return (_distance_rows_on(device, self.packed, self.aux),
+                _distance_rows_on(device, self.ov_packed, self.ov_aux))
 
     # -- interop ---------------------------------------------------------------
 
@@ -366,6 +419,23 @@ class WideKmerTable:
             v2 = np.concatenate([v2, o2])
         order = np.lexsort((lo, hi))
         return hi[order], lo[order], v0[order], v1[order], v2[order]
+
+
+def _rows_on(device, rows, words: int, make, *more, chunk: int = 1 << 21):
+    """(n, words) int32 rows on ``device``: make(rows[a:b], *more[a:b])
+    zero-padded to ``words``, a slice of buckets at a time."""
+    n = rows.shape[0]
+    out = torch.zeros((n, words), dtype=torch.int32, device=device)
+    for a in range(0, n, chunk):
+        part = make(rows[a:a + chunk], *(m[a:a + chunk] for m in more))
+        out[a:a + chunk, :part.shape[1]].copy_(
+            torch.from_numpy(np.ascontiguousarray(part).view(np.int32)))
+    return out
+
+
+def _distance_rows_on(device, packed, aux):
+    return _rows_on(device, packed, distance_row_words(packed.shape[1] // 2),
+                    distance_rows, aux)
 
 
 def _words_on(device, *arrays):

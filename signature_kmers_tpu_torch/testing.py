@@ -3,10 +3,11 @@
 One generator for every place that holds a kernel or a plain version to
 another: ``chip_smoke.py`` phase 2 and ``tests/test_torch_kernels_cuda.py``
 (kernel against plain version on the card) and the CPU tests (plain version
-against the JAX package).  The pack kernel takes 16 windows per thread from
-two transfer rows; the automaton kernel runs one warp per row over steps of
-32 windows; the probe kernel takes 4 windows per thread.  Also the exact
-host route of the distance mask (distance_found_host), for checks.
+against the JAX package).  The pack kernel and the fused probes take 16
+windows per thread from two transfer rows; the automaton kernel runs one
+warp per row over steps of 32 windows; the call-path probe takes 4
+windows per thread.  Also the exact host route of the distance mask
+(distance_found_host), for checks.
 Nothing on the main path imports this module.
 """
 
@@ -124,6 +125,36 @@ def transfer_rows(L: int, B: int, seed: int, max_len: int | None = None):
     offsets = np.concatenate([[0], np.cumsum([s.shape[0] for s in seqs])])
     packed, start_row, lengths = pack_u6_rows_host(
         codes, offsets.astype(np.int32), B, L)
+    R = int(start_row[-1]) + L // ALIGN
+    start_row[-1] = R - 2
+    return packed[:R], start_row, lengths
+
+
+def key_transfer_rows(hi, lo, L: int, B: int, seed: int, over: int = 40):
+    """Transfer rows at padded width L of B >= 8 sequences made of table
+    keys (hi, lo): the windows at multiples of 8 are keys, the rest
+    straddle two keys, and the keys' 6-bit groups take every code, '*',
+    'X' and INVALID included.  Lengths: 0, 1, 8, 9, L - 1, L, L + over,
+    then U[0, L + over] (past L where they are, unclamped: the pack reads
+    no code past L, the distance filter reads the length).  The last
+    sequence's groups run past the last row into the clamp, as in
+    transfer_rows.  Returns (packed (R, 3) uint32, start_row (B,) int32,
+    lengths (B,) int32)."""
+    from .ops.kmer_pack import ALIGN, pack_u6_rows_host
+
+    rng = np.random.default_rng(seed)
+    pick = rng.integers(0, hi.shape[0], (B, L // 8))
+    words = np.stack([hi[pick], lo[pick]], axis=-1)  # (B, L/8, 2)
+    shifts = np.array([18, 12, 6, 0], np.uint32)
+    codes = ((words[..., None] >> shifts) & 63).astype(np.uint8)
+    codes = codes.reshape(B, L)
+    lengths = np.concatenate([[0, 1, 8, 9, L - 1, L, L + over],
+                              rng.integers(0, L + over + 1, B - 8),
+                              [L]]).astype(np.int32)
+    n = np.minimum(lengths, L)
+    offsets = np.concatenate([[0], np.cumsum(n)]).astype(np.int64)
+    flat = codes[np.arange(L)[None, :] < n[:, None]]
+    packed, start_row, _ = pack_u6_rows_host(flat, offsets, B, L)
     R = int(start_row[-1]) + L // ALIGN
     start_row[-1] = R - 2
     return packed[:R], start_row, lengths

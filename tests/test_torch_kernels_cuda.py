@@ -105,53 +105,75 @@ def test_probe(dev, layout):
 
 @pytest.mark.parametrize("layout", ["default", "compact"])
 def test_probe_aux_and_distance(dev, layout):
-    # value words that reach every branch of the distance filter; aux
-    # rows of 24 bytes (2 slots) start off 16 bytes at every odd bucket
+    # the fused aux probe and distance mask on transfer rows: rows of table
+    # keys (lengths past L, the last sequence's groups in the row clamp) at
+    # W = L (the tail group) and W < L, B 777 (the grid's last warp part
+    # empty), and the pack's edge rows; a value table whose words reach
+    # every branch of the distance filter; 2 or 4 main slots; the table's
+    # leaf, the leaf re-placed at 3 and 4 slots (distance rows of 8 and 16
+    # words, tags read 4 at a time) and no leaf
     hi, lo, v0, v1, v2 = kernel_cases.value_entries(200_000, 3)
     cfg = compact_config() if layout == "compact" else WideTableConfig()
     t = WideKmerTable.build(hi, lo, v0, v1, v2, cfg)
     assert t.ov_items > 0
     tabs = t.to_device(dev, with_aux=True)
-    kw = dict(salt=t.salt, bits=t.bits, ov_salt=t.ov_salt, ov_bits=t.ov_bits,
-              has_overflow=True)
+    drows = t.distance_rows_to_device(dev)
     leaf_keys = wide_table._occupied_tagged(t.ov_packed, t.ov_aux,
                                             t.ov_salt, t.ov_bits)
-    leaves = [tabs[1::2]]
-    for S in (3, 4):  # leaf tags read 2 or 4 at a time
+    leaves = [(t.ov_slots, tabs[1], tabs[3], drows[1], True)]
+    for S in (3, 4):
         ov, ov_aux, _ = wide_table._place_tagged(*leaf_keys, t.ov_bits,
                                                  t.ov_salt, S)
-        leaves.append((_as_int32(ov, dev), _as_int32(ov_aux, dev)))
-    for shape in ((512, 304), (100_003,)):
-        qhi, qlo, qvalid = kernel_cases.probe_queries(hi, lo, shape, 7)
-        q = [_as_int32(qhi, dev), _as_int32(qlo, dev),
-             torch.from_numpy(qvalid).to(dev)]
-        for ov, ov_aux in leaves:
-            tables = (tabs[0], ov, tabs[2], ov_aux)
-            before = probe.probe_wide_aux.launches
-            o1 = probe.probe_wide_aux(*q, *tables, **kw)
-            assert probe.probe_wide_aux.launches == before + 1
-            o2 = probe.probe_wide_aux_reference(*q, *tables, **kw)
-            found = o2[0]
-            assert torch.equal(o1[0], found)
-            assert 0.3 < found.float().mean().item() < 0.6
-            for a, b in zip(o1[1:], o2[1:]):
-                assert torch.equal(a[found], b[found])
-                assert not a[~found].any()
-            if len(shape) == 1:
-                continue
-            lengths = torch.from_numpy(
-                kernel_cases.distance_lengths(shape[0], 5)).to(dev)
-            for form in ((2.0, 0.1), (1.5, 0.1)):
-                fkw = dict(kw, hypo=kernel_cases.HYPO_FUNCTION,
-                           len_sigma_window=form[0],
-                           zero_var_len_frac=form[1])
-                before = probe.probe_wide_distance.launches
-                m1 = probe.probe_wide_distance(*q, lengths, *tables, **fkw)
-                assert probe.probe_wide_distance.launches == before + 1
-                m2 = probe.probe_wide_distance_reference(*q, lengths,
-                                                         *tables, **fkw)
-                assert torch.equal(m1, m2)
-                assert 0 < int(m2.sum()) < int(found.sum())
+        leaves.append((S, _as_int32(ov, dev), _as_int32(ov_aux, dev),
+                       _as_int32(wide_table.distance_rows(ov, ov_aux), dev),
+                       True))
+    leaves.append(leaves[0][:4] + (False,))
+    L = 512
+    row_cases = [
+        (kernel_cases.key_transfer_rows(hi, lo, L, 777, 5), L, (L, 496)),
+        (kernel_cases.transfer_rows(384, 500, 6), 384, (384,))]
+    for rows_np, Lc, widths in row_cases:
+        rows = [_as_int32(a, dev) for a in rows_np]
+        for W in widths:
+            for ov_slots, ov, ov_aux, ov_drows, has_ov in leaves:
+                kw = dict(salt=t.salt, bits=t.bits, ov_salt=t.ov_salt,
+                          ov_bits=t.ov_bits, has_overflow=has_ov)
+                tables = (tabs[0], ov, tabs[2], ov_aux)
+                before = probe.probe_wide_aux.launches
+                o1 = probe.probe_wide_aux(*rows, Lc, W, *tables, **kw)
+                assert probe.probe_wide_aux.launches == before + 1
+                o2 = probe.probe_wide_aux_reference(*rows, Lc, W, *tables,
+                                                    **kw)
+                found = o2[0]
+                assert torch.equal(o1[0], found)
+                for a, b in zip(o1[1:], o2[1:]):
+                    assert torch.equal(a[found], b[found])
+                    assert not a[~found].any()
+                if Lc == L:
+                    assert 0.05 < found.float().mean().item() < 0.5
+                for form in ((2.0, 0.1), (1.5, 0.1)):
+                    fkw = dict(kw, slots=t.slots, ov_slots=ov_slots,
+                               hypo=kernel_cases.HYPO_FUNCTION,
+                               len_sigma_window=form[0],
+                               zero_var_len_frac=form[1])
+                    before = probe.probe_wide_distance.launches
+                    m1 = probe.probe_wide_distance(*rows, Lc, W, drows[0],
+                                                   ov_drows, **fkw)
+                    assert probe.probe_wide_distance.launches == before + 1
+                    m2 = probe.probe_wide_distance_reference(
+                        *rows, Lc, W, drows[0], ov_drows, **fkw)
+                    assert torch.equal(m1, m2)
+                    assert int(m2.sum()) <= int(found.sum())
+                    if Lc == L:
+                        assert int(m2.sum()) > 0
+    # distance rows off a 16-byte boundary raise
+    off = torch.empty(drows[0].numel() + 1, dtype=torch.int32,
+                      device=dev)[1:].view(drows[0].shape)
+    with pytest.raises(ValueError, match="aligned"):
+        probe.probe_wide_distance(*rows, 384, 384, off, drows[1],
+                                  slots=t.slots, ov_slots=t.ov_slots,
+                                  **kw, hypo=-1, len_sigma_window=2.0,
+                                  zero_var_len_frac=0.1)
 
 
 def _automaton_both(dev, W, n_random, mad_floor):
