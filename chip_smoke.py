@@ -67,19 +67,25 @@ Phases, in order; any failure exits non-zero:
    times one dense block's float32 product.
 3d. the build at the reference's scale: the 300K-sequence corpus of
    benchmarks/e2e_build_bench.py (testing.build_corpus, seed 11, 100
-   genomes x 3000 families x 300 residues) with 300 sequences in lower
-   case, so that kept k-mers with bit 63 set are on the path, through
-   pipeline.run_build(device="cuda") with recall into a temporary data
-   dir.  It fails unless both build kernels and the three call-path
-   kernels (in the recall) launched, and if any plain version ran; the
-   artifacts are read back (final.kmers rows, the table's keys and
-   sampled values); every build-kernel call is held bit for bit to its
-   plain version on the same card tensors; the kept set and the kept
-   sequence ids must equal the host route (_extract_windows_np +
-   _select_np over the whole corpus).  Reports the build's seconds per
-   phase (run_build's names), each kernel's time on the path's inputs,
-   each sort's, the selection's windows/s, and the selection of
-   bench.py's 20M random windows (seed 3).
+   genomes x 3000 families x 300 residues, sequence ids file * 100000 +
+   n) with 300 sequences in lower case, so that kept k-mers with bit 63
+   set are on the path, through pipeline.run_build(device="cuda") with
+   recall into a temporary data dir.  It fails unless both build kernels
+   and the three call-path kernels (in the recall) launched, and if any
+   plain version ran; the artifacts are read back (final.kmers rows, the
+   table's keys and sampled values, no recall mismatch line); every
+   build-kernel call is held bit for bit to its plain version on the same
+   card tensors; the kept set and the kept sequence ids must equal the
+   host route (_extract_windows_np + _select_np over the whole corpus).
+   Prints the k-mer group-size histogram, the build's seconds per phase
+   (run_build's names), process_kmers split into its parts (transfer
+   rows, upload, kernel 6, sorts, kernel 7 with the kept ids, fetch,
+   statistics; synchronized after each), each kernel's time on the path's
+   inputs as issued and held (its launch alone) against its bound, each
+   sort's, the selection's windows/s; then bench.py's 20M random windows
+   (seed 3): kernel 7 against its plain version, held, the selection's
+   time, and the kept ids of a sparse-id numbering against the plain
+   version's.
 4. one JSON line of per-kernel numbers (launches from one run of each
    kernel's own path, named in launches_of), the card line, and the
    contract line {"ok": true, "device": {...}} last.
@@ -411,6 +417,27 @@ def host_pair_counts(md, codes, sample):
     return out
 
 
+def group_histogram(k1s) -> str:
+    """The k-mer groups' sizes of sorted sort-1 keys, binned by powers of
+    two, and the share of entries in groups that one thread walks."""
+    import torch
+
+    from signature_kmers_tpu_torch.ops import build_select
+
+    sizes = torch.unique_consecutive(k1s >> 16, return_counts=True)[1]
+    edges = [1, 2, 4, 8, 16, 32, 64, 128, 256, 1024, 1 << 62]
+    bins = []
+    for lo, hi in zip([1] + [e + 1 for e in edges[:-1]], edges):
+        n = int(((sizes >= lo) & (sizes <= hi)).sum())
+        if n:
+            bins.append(f"{lo}-{hi if hi < 1 << 62 else 'max'}: {n}")
+    small = int(sizes[sizes <= build_select.SMALL].sum())
+    return (f"{sizes.shape[0]} groups, largest {int(sizes.max())}; "
+            + ", ".join(bins) + f"; entries in groups of <= "
+            f"{build_select.SMALL} (a thread each): {small} of "
+            f"{int(sizes.sum())}")
+
+
 def build_phase(card: str, report: dict, differences, plain_of: dict,
                 call_wrappers: dict) -> dict:
     """Phase 3d (module docstring): the port's build of the reference's
@@ -425,7 +452,6 @@ def build_phase(card: str, report: dict, differences, plain_of: dict,
     from signature_kmers_tpu_torch import testing as kernel_cases
     from signature_kmers_tpu_torch.models import pipeline, signature_builder
     from signature_kmers_tpu_torch.ops import build_extract, build_select
-    from signature_kmers_tpu_torch.ops import cuda_launch as cl
 
     build_wrappers = {
         "build_extract_windows": build_extract.build_extract_windows,
@@ -443,8 +469,9 @@ def build_phase(card: str, report: dict, differences, plain_of: dict,
         torch.cuda.reset_peak_memory_stats()
         for w in wrappers.values():
             w.launches = 0
+        # select_compact is kept for its sequence ids (no launch of its own)
         with counting_plain_versions() as plain, keeping_kernel_calls(
-                tuple(build_wrappers)) as kept:
+                (*build_wrappers, "select_compact")) as kept:
             t0 = time.perf_counter()
             res = pipeline.run_build(
                 definition_dirs=[defs_dir], fasta_dirs=[fasta_dir],
@@ -485,7 +512,7 @@ def build_phase(card: str, report: dict, differences, plain_of: dict,
         want_v0 = ((res.kept.function_index[pick].astype(np.uint32) << 16)
                    | res.kept.avg_from_end[pick])
         if (n_final != n_kept or table.n_items != n_kept or not found.all()
-                or not np.array_equal(v0, want_v0)):
+                or not np.array_equal(v0, want_v0) or n_recall):
             fail("build: the written artifacts disagree with the kept set")
         if not np.all(np.diff((res.kept.hi.astype(np.uint64) << np.uint64(24))
                               | res.kept.lo) > 0):
@@ -497,7 +524,8 @@ def build_phase(card: str, report: dict, differences, plain_of: dict,
             fail("build: no lower-case k-mer with bit 63 set was kept")
 
         # each kept kernel call against its plain version, same tensors
-        for name, calls in kept.items():
+        for name in build_wrappers:
+            calls = kept[name]
             n, err = 0, 0
             for a, kw, o in calls:
                 n_, e_ = differences(name, o, plain_of[name](*a, **kw))
@@ -507,21 +535,24 @@ def build_phase(card: str, report: dict, differences, plain_of: dict,
             if n:
                 fail(f"build: {name} differs from its plain version ({n})")
             report[name] = dict(mismatches=n, max_abs_err=float(err))
-        ext_args = kept["build_extract_windows"][0][0]
-        windows = kept["build_extract_windows"][0][2]
+        ext_args, ext_kw, windows = kept["build_extract_windows"][0]
         sel_args = kept["build_select_runs"][0][0]
+        sids_t = kept["select_compact"][0][1]["sids"]
         del kept
+        print(f"build: k-mer group sizes of the 300K corpus: "
+              f"{group_histogram(sel_args[0])}")
 
         # the kept set against the host route (numpy twins)
-        codes_rows, starts, fidx, plen, sid = (t.cpu().numpy()
-                                               for t in ext_args)
+        codes_rows, starts, fidx, plen = (t.cpu().numpy() for t in ext_args)
+        sids = sids_t.cpu().numpy()
         t0 = time.perf_counter()
         first = np.cumsum(plen, dtype=np.int64) - plen
         pos = (np.arange(int(plen.sum()), dtype=np.int64)
                + np.repeat(starts.astype(np.int64) - first, plen))
-        host_win = signature_builder._extract_windows_np(
-            codes_rows[pos], fidx, plen, sid, 8)
+        codes = codes_rows[pos]
         del pos
+        host_win = signature_builder._extract_windows_np(
+            codes, fidx, plen, sids, 8)
         host_kept, host_sids = signature_builder._select_np(
             *host_win, threshold=0.8)
         host_s = time.perf_counter() - t0
@@ -538,64 +569,59 @@ def build_phase(card: str, report: dict, differences, plain_of: dict,
               f"{'equal' if same_sids else 'differ'}")
         if bad or not same_sids:
             fail("build: the kept set differs from the host route")
+        split = process_kmers_split(res.builder, codes, sids, fidx, plen,
+                                    n_kept, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # times on the build path's own inputs
+    dev = ext_args[0].device
     N = windows[0].shape[0]
     B = ext_args[1].shape[0]
-    G = sel_args[3].shape[0]
     k6 = report["build_extract_windows"]
+    n_codes = ext_args[0].shape[0]
     k6.update(
-        ms=time_ms(lambda: build_extract.build_extract_windows(*ext_args), 5),
+        ms=time_ms(lambda: build_extract.build_extract_windows(
+            *ext_args, **ext_kw), 5),
         plain_ms=time_ms(lambda: build_extract.build_extract_windows_reference(
-            *ext_args), 1),
-        path_shape=f"{B} sequences, {ext_args[0].shape[0]} codes, {N} "
-                   f"valid windows")
-    # bytes: each code once, 16 per sequence in, 24 per window out
-    k6["bound_ms"], k6["bound_by"] = bound_ms(
-        ext_args[0].shape[0] + 16 * B + 24 * N, 0)
-    # the wrapper waits for the count pass (its output size), so the
-    # held time is that of its two launches alone, on the same inputs and
-    # the offsets it computes
-    codes, starts_t, fidx_t, plen_t, sid_t = ext_args
-    counts = torch.empty(B, dtype=torch.int32, device=codes.device)
-    outs = [torch.empty_like(w) for w in windows]
+            *ext_args, **ext_kw), 1),
+        path_shape=f"{B} sequences, {n_codes} codes (the outputs' size), "
+                   f"{N} valid windows")
+    # bytes: each code once and 12 per sequence in, 24 per window out
+    k6["bound_ms"], k6["bound_by"] = bound_ms(n_codes + 12 * B + 24 * N, 0)
+    # held: the wrapper's launch alone (its scratch zeroed), without the
+    # read of the count that ends the wrapper, on the same inputs
+    outs = [torch.empty(n_codes, dtype=w.dtype, device=dev) for w in windows]
+    scratch6 = build_extract.extract_scratch(B, dev)
 
-    def count_pass():
-        cl.launch("build_extract_count",
-                  [codes.data_ptr(), starts_t.data_ptr(), plen_t.data_ptr(),
-                   B, build_extract.AA_MASK, counts.data_ptr()],
-                  codes.device)
+    def k6_launch():
+        scratch6.zero_()
+        build_extract.launch_extract(*ext_args, outs, scratch6)
 
-    count_pass()
-    offsets = torch.cumsum(counts, 0, dtype=torch.int64) - counts
-
-    def both_passes():
-        count_pass()
-        cl.launch("build_extract_windows",
-                  [codes.data_ptr(), starts_t.data_ptr(), plen_t.data_ptr(),
-                   fidx_t.data_ptr(), sid_t.data_ptr(), B,
-                   build_extract.AA_MASK, offsets.data_ptr(),
-                   *(o.data_ptr() for o in outs)], codes.device)
-
-    k6["held_ms"] = time_ms(both_passes, 5, hold=True)
-    if any(not torch.equal(o, w) for o, w in zip(outs, windows)):
-        fail("build_extract_windows: its launches alone differ from the "
+    k6["held_ms"] = time_ms(k6_launch, 5, hold=True)
+    if int(scratch6[1]) != N or any(not torch.equal(o[:N], w)
+                                    for o, w in zip(outs, windows)):
+        fail("build_extract_windows: its launch alone differs from the "
              "wrapper's output")
-    del counts, outs, offsets
+    del outs, scratch6
     k7 = report["build_select_runs"]
+    sel_out = build_select.build_select_runs(*sel_args)
+    n_kept_path = sel_out[0].shape[0]
+    n_seqs = sel_args[4]
     k7.update(
         ms=time_ms(lambda: build_select.build_select_runs(*sel_args), 5),
-        held_ms=time_ms(lambda: build_select.build_select_runs(*sel_args), 5,
-                        hold=True),
+        held_ms=select_held_ms(sel_args, sel_out),
         plain_ms=time_ms(lambda: build_select.build_select_runs_reference(
             *sel_args), 1),
-        path_shape=f"{N} entries, {G} k-mer groups")
-    # bytes: k1s, plen_s, k2s (20 per entry) and starts (8 per group) in;
-    # the words, keep (17 per group) and entry_kept (1 per entry) out
-    k7["bound_ms"], k7["bound_by"] = bound_ms(20 * N + 25 * G + N, 0)
-    key_f, key_o, plen_w, sid_w = windows
+        path_shape=f"{N} entries, {n_kept_path} kept groups, {n_seqs} "
+                   f"sequences")
+    k7_bytes = select_bound_bytes(sel_args, sel_out[0])
+    k7["bound_ms"], k7["bound_by"] = bound_ms(sum(k7_bytes.values()), 0)
+    k7["bound_bytes"] = k7_bytes
+    print(f"build_select_runs: bytes of its bound at the 300K corpus: "
+          f"{k7_bytes}")
+    del sel_out
+    key_f, key_o, plen_w, seq_w = windows
     order = torch.sort(plen_w, stable=True).indices
     kf_plen = key_f[order]
     sort_ms = {
@@ -605,27 +631,31 @@ def build_phase(card: str, report: dict, differences, plain_of: dict,
             lambda: torch.sort(kf_plen, stable=True), 3),
         "key_o, int64": time_ms(lambda: torch.sort(key_o), 3)}
     del order, kf_plen
+    # each sort reads and writes its keys and an int64 permutation once
+    # (sort 2 its keys only): 2 x (4 + 8), 2 x (8 + 8) and 2 x 8 per entry
+    sort_bound = bound_ms((24 + 32 + 16) * N, 0)[0]
     sel_ms = time_ms(lambda: build_select.select_compact(
-        *windows, threshold=0.8), 3)
+        *windows, threshold=0.8, sids=sids_t), 3)
     for name in build_wrappers:
         r = report[name]
-        r.update(library_ms=None, sort_ms=sort_ms)
-        print(f"{name}: {r['ms']:.4f} ms as issued"
-              + (f", {r['held_ms']:.4f} held" if "held_ms" in r else "")
-              + f", plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}) at {r['path_shape']} [{card}]")
+        r.update(library_ms=None, sort_ms=sort_ms, sort_bound_ms=sort_bound)
+        print(f"{name}: {r['ms']:.4f} ms as issued, {r['held_ms']:.4f} held"
+              f", plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; held at {r['bound_ms'] / r['held_ms']:.1%} "
+              f"of it) at {r['path_shape']} [{card}]")
     print(f"build sorts: " + ", ".join(f"{k} {v:.4f} ms"
                                        for k, v in sort_ms.items())
-          + f" [{card}]")
-    print(f"build selection (sorts + build_select_runs + compaction) of the "
+          + f"; bound of the three {sort_bound:.4f} ms [{card}]")
+    print(f"build selection (sorts + build_select_runs + kept ids) of the "
           f"300K corpus's {N} windows: {sel_ms:.4f} ms, "
           f"{N / sel_ms * 1e3:.4g} windows/s [{card}]")
-    del windows, sel_args, ext_args, key_f, key_o, plen_w, sid_w
+    report["build_select_runs"]["process_kmers_split_s"] = split
+    del windows, sel_args, ext_args, key_f, key_o, plen_w, seq_w, sids_t
     torch.cuda.empty_cache()
 
-    # bench.py's build-selection workload: 20M random windows, seed 3
+    # bench.py's build-selection workload: 20M random windows, seed 3; the
+    # sequence column (20 bits) is the dense index, over 2^20 sequences
     brng = np.random.default_rng(3)
-    dev = torch.device("cuda")
     cols = [torch.from_numpy(a).to(dev) for a in (
         brng.integers(0, 1 << 24, SELECT_WINDOWS),
         brng.integers(0, 1 << 24, SELECT_WINDOWS),
@@ -638,26 +668,172 @@ def build_phase(card: str, report: dict, differences, plain_of: dict,
             build_extract.window_keys(kmer, cols[3]),
             cols[4].to(torch.int32), cols[5].to(torch.int32))
     del cols, kmer
-    k1s, plen_s, _, k2s = build_select.sort_windows(*rand)
-    r_args = (k1s, plen_s, k2s, build_select.group_starts(k1s), 0.8)
-    n_, e_ = differences("build_select_runs",
-                         build_select.build_select_runs(*r_args),
+    k1s, plen_s, seq_s, k2s = build_select.sort_windows(*rand)
+    r_args = (k1s, plen_s, k2s, seq_s, 1 << 20, 0.8)
+    r_out = build_select.build_select_runs(*r_args)
+    n_, e_ = differences("build_select_runs", r_out,
                          build_select.build_select_runs_reference(*r_args))
     if n_:
         fail(f"build_select_runs differs from its plain version on the 20M "
              f"random windows ({n_})")
-    rand_kernel_ms = time_ms(lambda: build_select.build_select_runs(*r_args),
-                             5, hold=True)
-    del k1s, plen_s, k2s, r_args
+    print(f"build: 20M random windows' k-mer groups: "
+          f"{group_histogram(k1s)}")
+    rand_kernel_ms = select_held_ms(r_args, r_out)
+    rand_bytes = select_bound_bytes(r_args, r_out[0])
+    rand_bound = bound_ms(sum(rand_bytes.values()), 0)[0]
+    print(f"build_select_runs: bytes of its bound on the 20M random "
+          f"windows: {rand_bytes}")
+    del r_out
+    # a sparse-id case: files of 3000 sequences numbered file * 100000 + n
+    sparse = torch.from_numpy(kernel_cases.sparse_sids(1 << 20)).to(dev)
+    got = build_select.select_compact(*rand, threshold=0.8, sids=sparse)
+    want = build_select.kept_sids(build_select.build_select_runs_reference(
+        *r_args)[1], sparse)
+    if not (torch.equal(got[1], want)
+            and bool((got[1][1:] > got[1][:-1]).all())):
+        fail("select_compact: the kept sparse ids differ from the plain "
+             "version's, or are not ascending")
+    print(f"build: 20M random windows with sparse ids (file * 100000 + n, "
+          f"files of 3000): {got[1].shape[0]} kept ids equal to the plain "
+          f"version's, ascending, largest {int(got[1][-1])}")
+    del k1s, plen_s, seq_s, k2s, r_args, got, want
+    dense = torch.arange(1 << 20, dtype=torch.int32, device=dev)
     rand_ms = time_ms(lambda: build_select.select_compact(
-        *rand, threshold=0.8), 3)
+        *rand, threshold=0.8, sids=dense), 3)
     print(f"build selection of bench.py's {SELECT_WINDOWS} random windows "
           f"(seed 3): {rand_ms:.4f} ms, {SELECT_WINDOWS / rand_ms * 1e3:.4g} "
-          f"windows/s; build_select_runs held {rand_kernel_ms:.4f} ms, equal "
-          f"to its plain version [{card}]")
+          f"windows/s; build_select_runs held {rand_kernel_ms:.4f} ms, "
+          f"bound {rand_bound:.4f} ms (held at {rand_bound / rand_kernel_ms:.1%}"
+          f" of it), equal to its plain version [{card}]")
     report["build_select_runs"].update(random20m_select_ms=rand_ms,
-                                       random20m_kernel_held_ms=rand_kernel_ms)
+                                       random20m_kernel_held_ms=rand_kernel_ms,
+                                       random20m_bound_ms=rand_bound)
     return launched
+
+
+def select_held_ms(args, out) -> float:
+    """build_select_runs' launch alone (its scratch and flags zeroed, as
+    the wrapper does), with the stream held, without the read of the kept
+    count; fails unless it writes the wrapper's output."""
+    import torch
+
+    from signature_kmers_tpu_torch.ops import build_select
+
+    k1s, plen_s, k2s, seq_s, n_seqs, threshold = args
+    N = k1s.shape[0]
+    dev = k1s.device
+    words = torch.empty((N, 4), dtype=torch.int32, device=dev)
+    flags = torch.empty(n_seqs, dtype=torch.uint8, device=dev)
+    scratch = build_select.select_scratch(N, dev)
+
+    def launch():
+        scratch.zero_()
+        flags.zero_()
+        build_select.launch_select(k1s, plen_s, k2s, seq_s, threshold,
+                                   words, flags, scratch)
+
+    ms = time_ms(launch, 5, hold=True)
+    n = int(scratch[1])
+    if not (torch.equal(words[:n], out[0]) and torch.equal(flags, out[1])):
+        fail("build_select_runs: its launch alone differs from the "
+             "wrapper's output")
+    return ms
+
+
+def select_bound_bytes(args, words) -> dict:
+    """The bytes build_select_runs must move on these sorted windows, at
+    the card's 32-byte sectors: every sector of k1s (each group's extent
+    and runs); of plen_s, the sectors holding an entry of a kept group's
+    best run (its function, word 1); of seq_s, those holding an entry of a
+    kept group; of k2s, the sector of each kept group's middle entry; then
+    16 bytes per kept word and a flag byte per sequence written.  A group
+    that is not kept needs nothing past its keys."""
+    import torch
+
+    from signature_kmers_tpu_torch.ops import build_extract
+
+    k1s, _, _, _, n_seqs, _ = args
+    N = k1s.shape[0]
+    w = words.to(torch.int64) & 0xFFFF_FFFF
+    kept_kmer = (w[:, 0] << 16) | (w[:, 1] >> 16)
+    kept_func = w[:, 1] & 0xFFFF
+    gk, gc = torch.unique_consecutive(build_extract.key_kmer(k1s),
+                                      return_counts=True)
+    gs = torch.cumsum(gc, 0) - gc
+    gi = torch.searchsorted(gk, kept_kmer)
+    # per entry: in a kept group, and in its best run
+    kept = torch.zeros(gk.shape[0], dtype=torch.bool, device=k1s.device)
+    kept[gi] = True
+    in_kept = torch.repeat_interleave(kept, gc)
+    best = torch.zeros(gk.shape[0], dtype=torch.int64, device=k1s.device)
+    best[gi] = kept_func
+    in_best = in_kept & (torch.repeat_interleave(best, gc) == (k1s & 0xFFFF))
+    del best
+
+    def sectors(mask, item):
+        per = 32 // item
+        pad = torch.zeros(-(-N // per) * per, dtype=torch.bool,
+                          device=k1s.device)
+        pad[:N] = mask
+        return 32 * int(pad.view(-1, per).any(1).sum())
+
+    mid = torch.zeros(N, dtype=torch.bool, device=k1s.device)
+    mid[gs[gi] + gc[gi] // 2] = True
+    return {"k1s": 32 * -(-N // 4), "plen_s": sectors(in_best, 4),
+            "seq_s": sectors(in_kept, 4), "k2s": sectors(mid, 8),
+            "words": 16 * w.shape[0], "flags": n_seqs}
+
+
+def process_kmers_split(builder, codes, sids, fidx, plen, n_kept: int,
+                        card: str) -> dict:
+    """SignatureBuilder._select_from_seqs' device route in its parts, on
+    the build's own corpus, with a synchronize after each part: host
+    seconds of the transfer rows, the upload, kernel 6 (with its count
+    read), the sorts, kernel 7 with the kept ids, the fetch and the
+    statistics.  Run twice; -> the second run's seconds."""
+    import torch
+
+    from signature_kmers_tpu_torch.models import signature_builder as sb
+    from signature_kmers_tpu_torch.ops import build_extract, build_select
+
+    for run in range(2):
+        parts = {}
+        t = time.perf_counter()
+
+        def part(name):
+            nonlocal t
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            parts[name] = now - t
+            t = now
+
+        rows, starts = sb.transfer_rows(codes, plen)
+        part("transfer rows")
+        up = [builder._to_device(a) for a in (rows, starts, fidx, plen,
+                                              sids)]
+        part("upload")
+        win = build_extract.build_extract_windows(*up[:4])
+        part("kernel 6")
+        k1s, plen_s, seq_s, k2s = build_select.sort_windows(*win)
+        del win
+        part("sorts")
+        words, flags = build_select.build_select_runs(
+            k1s, plen_s, k2s, seq_s, sids.shape[0],
+            builder.config.signature_threshold)
+        kept = build_select.kept_sids(flags, up[4])
+        part("kernel 7 + kept ids")
+        w, s = words.cpu().numpy(), kept.cpu().numpy()
+        part("fetch")
+        out = builder._finalize_host(sb.kept_from_words(w), s)
+        part("statistics")
+        del k1s, plen_s, seq_s, k2s, words, flags, kept, up
+        if len(out) != n_kept:
+            fail("process_kmers split: another kept count than the build's")
+        print(f"process_kmers split, run {run + 1} (host s, synchronized "
+              f"after each part): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in parts.items())
+              + f"; sum {sum(parts.values()):.4f} [{card}]")
+    return parts
 
 
 def main() -> int:
@@ -738,6 +914,8 @@ def main() -> int:
               f"plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}) [{card}]")
 
     def max_diff(a, b):
+        if a.shape != b.shape:  # e.g. another kept count: all differ
+            return max(a.numel(), b.numel(), 1), -1
         d = (a.to(torch.int64) - b.to(torch.int64)).abs()
         return (int((d != 0).sum()), int(d.max()) if d.numel() else 0)
 
@@ -1534,8 +1712,10 @@ def main() -> int:
         extra = {k: r[k] for k in ("held_ms", "bound_ms_before",
                                    "path_shape", "path_ms", "path_held_ms",
                                    "path_plain_ms", "path_bound_ms",
-                                   "sort_ms", "random20m_select_ms",
-                                   "random20m_kernel_held_ms")
+                                   "sort_ms", "sort_bound_ms",
+                                   "random20m_select_ms",
+                                   "random20m_kernel_held_ms",
+                                   "process_kmers_split_s")
                  if k in r}
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces, launches=path_launches[name],

@@ -493,10 +493,10 @@ class SignatureBuilder:
 
         rows, starts = transfer_rows(codes, plens)
         win = build_extract.build_extract_windows(
-            *(self._to_device(a) for a in (rows, starts, fidxs, plens,
-                                           sids)))
+            *(self._to_device(a) for a in (rows, starts, fidxs, plens)))
         return self._finalize_compact(*build_select.select_compact(
-            *win, threshold=self.config.signature_threshold))
+            *win, threshold=self.config.signature_threshold,
+            sids=self._to_device(sids)))
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -509,48 +509,51 @@ class SignatureBuilder:
                                         threshold=thresh,
                                         p2_stats=self.config.p2_stats)
             return self._finalize_host(out, kept_sids)
-        hi, lo, func, off, plen, sid = (
-            self._to_device(np.asarray(a).astype(np.int64))
-            for a in (hi, lo, func, off, plen, sid))
+        # the device pass carries a dense sequence index, not the id
+        sids, seq = np.unique(np.asarray(sid), return_inverse=True)
+        hi, lo, func, off = (self._to_device(np.asarray(a).astype(np.int64))
+                             for a in (hi, lo, func, off))
         kmer = (hi << 24) | lo
         return self._finalize_compact(*build_select.select_compact(
             build_extract.window_keys(kmer, func),
-            build_extract.window_keys(kmer, off), plen.to(torch.int32),
-            sid.to(torch.int32), threshold=thresh))
+            build_extract.window_keys(kmer, off),
+            self._to_device(np.asarray(plen).astype(np.int32)),
+            self._to_device(seq.astype(np.int32)), threshold=thresh,
+            sids=self._to_device(sids.astype(np.int32))))
 
     def _finalize_host(self, out: KeptKmerArrays, kept_sids) -> KeptKmerArrays:
-        """Record build statistics for the numpy selection result
-        (host twin of the tail of _finalize_compact)."""
+        """Record the build statistics of a selection result: the kept
+        signatures and the ascending ids of the sequences with one."""
         self.stats.distinct_signatures = len(out)
-        bf, cnt = np.unique(out.function_index, return_counts=True)
-        self.stats.distinct_functions = dict(zip(bf.tolist(), cnt.tolist()))
-        self.stats.seqs_with_a_signature = set(
-            int(x) for x in kept_sids.tolist())
+        cnt = np.bincount(out.function_index)
+        bf = np.flatnonzero(cnt)
+        self.stats.distinct_functions = dict(zip(bf.tolist(),
+                                                 cnt[bf].tolist()))
+        self.stats.seqs_with_a_signature = set(kept_sids.tolist())
         return out
 
     def _finalize_compact(self, words: torch.Tensor,
-                          uniq_sids: torch.Tensor) -> KeptKmerArrays:
-        """Fetch the device-compacted selection result: 16 bytes per kept
-        signature in one block, and the unique kept sequence ids."""
-        w = words.cpu().numpy().view(np.uint32)
-        w0, w1, w2, w3 = (w[:, i] for i in range(4))
-        out = KeptKmerArrays(
-            hi=w0 >> 8,
-            lo=((w0 & 0xFF) << 16) | (w1 >> 16),
-            avg_from_end=(w3 & 0xFFFF).astype(np.uint16),
-            function_index=(w1 & 0xFFFF).astype(np.uint16),
-            mean=(w2 >> 16).astype(np.uint16),
-            median=(w2 & 0xFFFF).astype(np.uint16),
-            var=(w3 >> 16).astype(np.uint16),
-        )
-        # already sorted by (hi, lo) from the device sort
-        self.stats.distinct_signatures = len(out)
-        bf, cnt = np.unique(out.function_index, return_counts=True)
-        self.stats.distinct_functions = dict(
-            zip(bf.tolist(), cnt.tolist()))
-        self.stats.seqs_with_a_signature = set(
-            uniq_sids.cpu().numpy().tolist())
-        return out
+                          kept_sids: torch.Tensor) -> KeptKmerArrays:
+        """Fetch the device-compacted selection result (16 bytes per kept
+        signature in one block, already in k-mer order, and the kept
+        sequence ids) and record its statistics."""
+        return self._finalize_host(kept_from_words(words.cpu().numpy()),
+                                   kept_sids.cpu().numpy())
+
+
+def kept_from_words(words: np.ndarray) -> KeptKmerArrays:
+    """select_compact's (n, 4) words -> the kept signatures' columns."""
+    w = words.view(np.uint32)
+    w0, w1, w2, w3 = (w[:, i] for i in range(4))
+    return KeptKmerArrays(
+        hi=w0 >> 8,
+        lo=((w0 & 0xFF) << 16) | (w1 >> 16),
+        avg_from_end=(w3 & 0xFFFF).astype(np.uint16),
+        function_index=(w1 & 0xFFFF).astype(np.uint16),
+        mean=(w2 >> 16).astype(np.uint16),
+        median=(w2 & 0xFFFF).astype(np.uint16),
+        var=(w3 >> 16).astype(np.uint16),
+    )
 
 
 def transfer_rows(codes: np.ndarray, plens: np.ndarray):

@@ -76,15 +76,13 @@ ENTRY_POINTS = {
     "device_automaton_packed": (
         "automaton", "skt_automaton_packed",
         [PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, FLOAT, PTR]),
-    "build_extract_count": (
-        "build_extract", "skt_build_extract_count",
-        [PTR, PTR, PTR, INT, ULONGLONG, PTR]),
     "build_extract_windows": (
         "build_extract", "skt_build_extract_windows",
-        [PTR, PTR, PTR, PTR, PTR, INT, ULONGLONG, PTR, PTR, PTR, PTR, PTR]),
+        [PTR, PTR, PTR, PTR, INT, ULONGLONG, LONG, PTR, PTR, PTR, PTR,
+         PTR, LONG]),
     "build_select_runs": (
         "build_select", "skt_build_select_runs",
-        [PTR, PTR, PTR, PTR, LONG, LONG, FLOAT, PTR, PTR, PTR]),
+        [PTR, PTR, PTR, PTR, LONG, INT, FLOAT, PTR, PTR, PTR, LONG]),
 }
 
 
@@ -99,10 +97,14 @@ def _entry_point(name: str):
 
 def launch(name: str, args: list, device: torch.device) -> None:
     """Call the entry point ``name`` with ``(*args, stream)``; it launches
-    on the device's current stream and returns cudaGetLastError()."""
+    on the device's current stream and returns cudaGetLastError(), or -1
+    without launching when its scratch array is too short."""
     fn = _entry_point(name)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err == -1:
+        raise ValueError(f"{fn.__name__}: the scratch array is shorter than "
+                         f"the kernel's tiles need")
     if err != 0:
         raise RuntimeError(f"{fn.__name__}: CUDA launch failed with error "
                            f"{err}")

@@ -7,9 +7,10 @@ against the JAX package).  The pack kernel and the fused probes take 16
 windows per thread from two transfer rows; the automaton kernel runs one
 warp per row over steps of 32 windows; the call-path probe takes 4
 windows per thread.  The build's kernels take a warp per sequence
-(extraction) and per k-mer group (selection): build_rows and
-select_windows; the build's corpus at the reference's scale on disk:
-build_corpus.  Also the exact host route of the distance mask
+(extraction, which holds a sequence's codes in chunks) and tiles of
+sorted entries with a thread per small k-mer group and a warp per large
+one (selection): build_rows, select_windows and select_tile_edges; the
+build's corpus at the reference's scale on disk: build_corpus.  Also the exact host route of the distance mask
 (distance_found_host), for checks.
 Nothing on the main path imports this module.
 """
@@ -249,16 +250,18 @@ def _build_codes():
     return upper, lower, lower[lower >= 32]
 
 
-def build_rows(B: int, seed: int, max_len: int = 300):
+def build_rows(B: int, seed: int, max_len: int = 300,
+               long_lens: tuple = (), odd_rate: float = 0.02):
     """The build's transfer rows (pack_u8_rows) of B >= 40 sequences:
-    edge sequences, then random ones of lengths U[8, max_len].
+    edge sequences, then one of each length in long_lens, then random ones
+    of lengths U[8, max_len].
 
     Residues are amino acids of either case (lower-case codes 26-51; a
     window starting at a code >= 32 has bit 63 set in its packed key),
-    with '*', 'X', 'x' and 'B' mid-sequence.  The edges: lengths 0, 7, 8,
-    9, 15, 16, 17, 31, 32, 33; a lower-case first code >= 32; '*', 'X' and
-    'x' alone at the 1st, 8th, 9th and last code.  A length-0 sequence
-    shares its start with the next one.
+    with '*', 'X', 'x' and 'B' mid-sequence (each residue at odd_rate).
+    The edges: lengths 0, 7, 8, 9, 15, 16, 17, 31, 32, 33; a lower-case
+    first code >= 32; '*', 'X' and 'x' alone at the 1st, 8th, 9th and last
+    code.  A length-0 sequence shares its start with the next one.
     Returns (codes (R*16,) uint8, starts, fidx, plen, sid (B,) int32)."""
     from .core import alphabet
     from .ops.kmer_pack import ALIGN, pack_u8_rows
@@ -270,7 +273,7 @@ def build_rows(B: int, seed: int, max_len: int = 300):
 
     def residues(n):
         s = both[rng.integers(0, both.shape[0], n)]
-        hit = rng.random(n) < 0.02
+        hit = rng.random(n) < odd_rate
         s[hit] = odd[rng.integers(0, odd.shape[0], int(hit.sum()))]
         return s
 
@@ -284,6 +287,7 @@ def build_rows(B: int, seed: int, max_len: int = 300):
             s = upper[rng.integers(0, 20, 40)]
             s[pos] = code
             seqs.append(s)
+    seqs += [residues(n) for n in long_lens]
     lens = rng.integers(8, max_len + 1, B - len(seqs))
     plen = np.concatenate([[x.shape[0] for x in seqs], lens]).astype(
         np.int32)
@@ -363,6 +367,108 @@ def select_windows(seed: int, n_random: int = 3000):
             (keys[order] & np.uint64(0xFFFFFF)).astype(np.uint32),
             func[order].astype(np.int32), off[order].astype(np.int32),
             plen[order].astype(np.int32), sid[order].astype(np.int32))
+
+
+def select_tile_edges(seed: int, tile: int, small: int,
+                      n_seqs: int = 5000):
+    """Window attributes (hi, lo uint32; func, off, plen, seq int32) in a
+    shuffled order whose k-mer groups, once sorted, lie on the selection
+    kernel's edges for tiles of ``tile`` entries, groups of at most
+    ``small`` entries walked by a thread and a halo of ``small`` entries
+    (T below is the tile):
+
+    - a group of exactly one tile at [0, T), one of several tiles from T
+      (the tiles wholly inside it own no group);
+    - a small and a large group ending on a tile's last entry, and a small
+      and a large group starting on a tile's first entry;
+    - groups from one entry before a tile edge of ``small`` entries (its
+      end, the next group's start, is the halo's last entry) and of
+      ``small`` + 1 (it ends past the halo);
+    - a small group across the tile edge whose two functions tie, the
+      second run in the halo;
+    - groups of ``small`` and ``small`` + 1 entries inside a tile;
+    - warp-walked groups whose tied runs cross a 32-entry step: 30 + 30 +
+      4 (the first run wins) and 10 + 27 + 27 (the second);
+    - tiles of singletons only; a group of 45 entries last, ending on N.
+
+    Other groups are singletons or of 2-9 entries; a group's functions
+    are one main function with a random share, so that some groups pass
+    the 80% rule and some do not.  Lengths up to 65535, offsets over all
+    16 bits, k-mers with first codes >= 32 (bit 63 of the packed key);
+    seq < n_seqs."""
+    rng = np.random.default_rng(seed)
+    groups = []  # functions per group, in ascending k-mer order
+    size = [0]
+
+    def add(funcs):
+        groups.append([int(f) for f in funcs])
+        size[0] += len(funcs)
+
+    def some(n):
+        main = int(rng.integers(0, 0xFFFF))
+        share = rng.choice([1.0, 0.9, 0.8, 0.6])
+        return [main if rng.random() < share else int(rng.integers(0, 0xFFFF))
+                for _ in range(n)]
+
+    def fill_to(pos):  # singletons and small groups, ending on pos
+        while size[0] < pos:
+            add(some(min(int(rng.choice([1, 1, 1, 2, 3, 9])),
+                         pos - size[0])))
+
+    T = tile
+    add(some(T))
+    add(some(3 * T + 5))
+    fill_to(5 * T - 10)
+    add(some(10))                       # ends on tile 4's last entry
+    add(some(7))                        # starts on tile 5's first
+    fill_to(6 * T - 100)
+    add(some(100))                      # large, ends on a tile's last
+    add(some(50))                       # large, starts on a tile's first
+    fill_to(7 * T - 1)
+    add(some(small))                    # to the halo's last entry
+    fill_to(8 * T - 1)
+    add(some(small + 1))                # past the halo
+    fill_to(9 * T - 5)
+    add([300] * 10 + [301] * 10)        # a tie, the second run in the halo
+    add([7] * 30 + [9] * 30 + [11] * 4)  # ties across a 32-entry step
+    add([7] * 10 + [9] * 27 + [11] * 27)
+    add(some(small))
+    add(some(small + 1))
+    fill_to(10 * T)
+    for _ in range(2 * T):              # tiles 10 and 11: singletons only
+        add(some(1))
+    fill_to(12 * T + 300)
+    add(some(45))                       # the last group, ending on N
+
+    upper, lower, _ = _build_codes()
+    both = np.concatenate([upper, lower]).astype(np.uint64)
+    kmers = np.zeros(0, np.uint64)
+    while kmers.shape[0] < len(groups):
+        c = both[rng.integers(0, both.shape[0], (2 * len(groups), 8))]
+        k = np.zeros(c.shape[0], np.uint64)
+        for j in range(8):
+            k = (k << np.uint64(6)) | c[:, j]
+        kmers = np.unique(np.concatenate([kmers, k]))
+    kmers = np.sort(rng.choice(kmers, len(groups), replace=False))
+    keys = np.repeat(kmers, [len(f) for f in groups])
+    func = np.concatenate([np.asarray(f, np.int64) for f in groups])
+    n = keys.shape[0]
+    plen = np.where(rng.random(n) < 0.1, rng.integers(30000, 65536, n),
+                    rng.integers(8, 2000, n))
+    off = rng.integers(0, 65536, n)
+    seq = rng.integers(0, n_seqs, n)
+    order = rng.permutation(n)
+    return ((keys[order] >> np.uint64(24)).astype(np.uint32),
+            (keys[order] & np.uint64(0xFFFFFF)).astype(np.uint32),
+            func[order].astype(np.int32), off[order].astype(np.int32),
+            plen[order].astype(np.int32), seq[order].astype(np.int32))
+
+
+def sparse_sids(n_seqs: int, per_file: int = 3000) -> np.ndarray:
+    """Ascending sequence ids file_number * 100000 + n, as the builder
+    numbers them (core/config.py's max_seqs_per_file), per_file a file."""
+    i = np.arange(n_seqs)
+    return ((i // per_file) * 100_000 + i % per_file).astype(np.int32)
 
 
 def build_corpus(root, n_seqs: int, n_genomes: int = 100,

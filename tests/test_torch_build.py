@@ -162,11 +162,13 @@ def extraction():
         *(jnp.asarray(a) for a in rows))]
     valid = want[0] != 0xFFFFFF
     want = dict(zip(EXTRACT_FIELDS, (a[valid] for a in want)))
-    key_f, key_o, plen, sid = build_extract.build_extract_windows(
-        *(torch.from_numpy(a) for a in rows))
+    key_f, key_o, plen, seq = build_extract.build_extract_windows(
+        *(torch.from_numpy(a) for a in rows[:4]))
     kmer = build_extract.key_kmer(key_f)
+    # the kernel's fourth output is the sequence's index in the rows
     got = dict(hi=kmer >> 24, lo=kmer & 0xFFFFFF, func=key_f & 0xFFFF,
-               off=key_o & 0xFFFF, plen=plen, sid=sid)
+               off=key_o & 0xFFFF, plen=plen,
+               sid=torch.from_numpy(rows[4])[seq.to(torch.int64)])
     return want, {k: v.numpy() for k, v in got.items()}, key_f, rows
 
 
@@ -206,6 +208,19 @@ def _words_to_columns(w):
                 avg_from_end=w[:, 3] & 0xFFFF)
 
 
+def _select_compact_np(win, threshold):
+    """build_select.select_compact on window attribute arrays whose ids
+    are arbitrary: the ids densified, as SignatureBuilder._select does."""
+    sids, seq = np.unique(win[5], return_inverse=True)
+    t = [torch.from_numpy(a.astype(np.int64)) for a in win[:4]]
+    kmer = (t[0] << 24) | t[1]
+    return build_select.select_compact(
+        build_extract.window_keys(kmer, t[2]),
+        build_extract.window_keys(kmer, t[3]), torch.from_numpy(win[4]),
+        torch.from_numpy(seq.astype(np.int32)), threshold=threshold,
+        sids=torch.from_numpy(sids.astype(np.int32)))
+
+
 @pytest.fixture(scope="module")
 def selection():
     win = cases.select_windows(seed=21)
@@ -217,12 +232,7 @@ def selection():
         jax_words = np.asarray(words)[:int(n_rep)]
         jax_uniq = np.asarray(uniq)[:int(n_uniq)]
         host, host_sids = _select_np(*win, threshold=thr)
-        t = [torch.from_numpy(a.astype(np.int64)) for a in win]
-        kmer = (t[0] << 24) | t[1]
-        words_t, uniq_t = build_select.select_compact(
-            build_extract.window_keys(kmer, t[2]),
-            build_extract.window_keys(kmer, t[3]), t[4].to(torch.int32),
-            t[5].to(torch.int32), threshold=thr)
+        words_t, uniq_t = _select_compact_np(win, thr)
         out[thr] = (jax_words, jax_uniq, host, host_sids, words_t.numpy(),
                     uniq_t.numpy())
     return win, out
@@ -305,6 +315,95 @@ def test_selection_edges(selection):
                        return_counts=True)[1]
     assert counts.max() >= 2000
     assert out[0.3][4].shape[0] > out[0.8][4].shape[0]
+
+
+# -- (e) the selection's plain outputs on the kernel's tile edges ---------
+
+COLUMNS = ("hi", "lo", "function_index", "mean", "median", "var",
+           "avg_from_end")
+
+
+@pytest.fixture(scope="module")
+def tile_edges():
+    """select_tile_edges' windows with sparse sids (file_number * 100000 +
+    n): build_select_runs' plain outputs (kept words, flags) and
+    select_compact's against the numpy host twin (no JAX compile)."""
+    win = cases.select_tile_edges(5, build_select.TILE, build_select.SMALL)
+    sids = cases.sparse_sids(5000)
+    hi, lo, func, off, plen, seq = (torch.from_numpy(a) for a in win)
+    kmer = (hi.to(torch.int64) << 24) | lo.to(torch.int64)
+    windows = (build_extract.window_keys(kmer, func),
+               build_extract.window_keys(kmer, off), plen, seq)
+    out = {}
+    for thr in THRESHOLDS:
+        host, host_sids = _select_np(*win[:5], sids[win[5]], threshold=thr)
+        k1s, plen_s, seq_s, k2s = build_select.sort_windows(*windows)
+        words, flags = build_select.build_select_runs(
+            k1s, plen_s, k2s, seq_s, sids.shape[0], thr)
+        sel_words, kept = build_select.select_compact(
+            *windows, threshold=thr, sids=torch.from_numpy(sids))
+        out[thr] = (host, host_sids, words.numpy(), flags.numpy(),
+                    sel_words.numpy(), kept.numpy())
+    return win, sids, out
+
+
+@pytest.mark.parametrize("column", COLUMNS)
+@pytest.mark.parametrize("threshold", THRESHOLDS)
+def test_tile_edges_words_match_host_twin(tile_edges, threshold, column):
+    host, _, words, _, sel_words, _ = tile_edges[2][threshold]
+    assert np.array_equal(words, sel_words)
+    got = _words_to_columns(words)[column]
+    assert got.shape[0] == len(host) > 100
+    assert np.array_equal(got.astype(np.int64),
+                          getattr(host, column).astype(np.int64))
+
+
+@pytest.mark.parametrize("threshold", THRESHOLDS)
+def test_tile_edges_flags_give_host_sids(tile_edges, threshold):
+    sids = tile_edges[1]
+    _, host_sids, _, flags, _, kept = tile_edges[2][threshold]
+    assert flags.dtype == np.uint8 and set(np.unique(flags)) == {0, 1}
+    assert np.array_equal(sids[np.flatnonzero(flags)].astype(np.int64),
+                          host_sids)
+    assert np.array_equal(kept.astype(np.int64), host_sids)
+    assert np.all(np.diff(kept) > 0) and kept.max() > 100_000
+
+
+def test_select_plain_refuses_out_of_range_sequence(tile_edges):
+    # a kept entry's sequence index must lie in [0, n_seqs), as on the card
+    win = tile_edges[0]
+    hi, lo, func, off, plen, seq = (torch.from_numpy(a) for a in win)
+    kmer = (hi.to(torch.int64) << 24) | lo.to(torch.int64)
+    k1s, plen_s, seq_s, k2s = build_select.sort_windows(
+        build_extract.window_keys(kmer, func),
+        build_extract.window_keys(kmer, off), plen, seq)
+    for bad in (5000, -1):
+        with pytest.raises(ValueError, match="outside"):
+            build_select.build_select_runs(
+                k1s, plen_s, k2s, torch.full_like(seq_s, bad), 5000, 0.3)
+
+
+def test_tile_edges_ties(tile_edges):
+    # the tie in the halo and the ties across a 32-entry step go to the
+    # lowest function index among the largest runs
+    win, _, out = tile_edges
+    key = (win[0].astype(np.uint64) << np.uint64(24)) | win[1]
+    cols = _words_to_columns(out[0.3][2])
+    kept = dict(zip(((cols["hi"].astype(np.uint64) << np.uint64(24))
+                     | cols["lo"]).tolist(),
+                    cols["function_index"].tolist()))
+    uniq, counts = np.unique(key, return_counts=True)
+    for runs, want in (({300: 10, 301: 10}, 300),
+                       ({7: 30, 9: 30, 11: 4}, 7),
+                       ({7: 10, 9: 27, 11: 27}, 9)):
+        found = []
+        for k in uniq[counts == sum(runs.values())]:
+            f, c = np.unique(win[2][key == k], return_counts=True)
+            if dict(zip(f.tolist(), c.tolist())) == runs:
+                found.append(kept.get(int(k)))
+        assert found == [want]
+    # at 0.8 the 10 + 10 tie is not kept (50%)
+    assert out[0.8][2].shape[0] < out[0.3][2].shape[0]
 
 
 # -- the call-path verbs on edge queries ------------------------------------

@@ -225,7 +225,7 @@ def test_wrappers_raise_on_mixed_devices(dev):
 
 
 def _extract_both(dev, rows):
-    rows = [torch.from_numpy(a).to(dev) for a in rows]
+    rows = [torch.from_numpy(a).to(dev) for a in rows[:4]]
     before = build_extract.build_extract_windows.launches
     got = build_extract.build_extract_windows(*rows)
     assert build_extract.build_extract_windows.launches == before + 1
@@ -235,56 +235,155 @@ def _extract_both(dev, rows):
     return got
 
 
-def _select_both(dev, windows, threshold):
-    k1s, plen_s, sid_s, k2s = build_select.sort_windows(*windows)
-    starts = build_select.group_starts(k1s)
+def _select_both(dev, sorted_windows, n_seqs, threshold):
     before = build_select.build_select_runs.launches
-    got = build_select.build_select_runs(k1s, plen_s, k2s, starts, threshold)
+    got = build_select.build_select_runs(*sorted_windows, n_seqs, threshold)
     assert build_select.build_select_runs.launches == before + 1
-    want = build_select.build_select_runs_reference(k1s, plen_s, k2s,
-                                                    starts, threshold)
+    want = build_select.build_select_runs_reference(*sorted_windows, n_seqs,
+                                                    threshold)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
     return got
 
 
-@pytest.mark.parametrize("B,max_len", [(300, 300), (77, 1200)])
-def test_build_extract(dev, B, max_len):
-    # the edge rows (lengths 0, 7, 8, 9, 15-17, 31-33, '*', 'X', 'x' at the
-    # window edges, lower case, first codes >= 32) and random ones; B 77
-    # leaves the last block's warps part empty
-    key_f, _, _, sid = _extract_both(
-        dev, kernel_cases.build_rows(B, seed=B, max_len=max_len))
+def _sorted(windows):
+    k1s, plen_s, seq_s, k2s = build_select.sort_windows(*windows)
+    return k1s, plen_s, k2s, seq_s
+
+
+def _windows(dev, win):
+    hi, lo, func, off, plen, seq = (torch.from_numpy(a).to(dev)
+                                    for a in win)
+    kmer = (hi.to(torch.int64) << 24) | lo.to(torch.int64)
+    return (build_extract.window_keys(kmer, func),
+            build_extract.window_keys(kmer, off), plen, seq)
+
+
+@pytest.mark.parametrize("case", ["300-300", "77-1200", "chunks",
+                                  "x-heavy"])
+def test_build_extract(dev, case):
+    # B-max_len: lengths 0, 7, 8, 9, 15-17, 31-33, '*', 'X', 'x' at the
+    # window edges, lower case, first codes >= 32, and random rows (B 77
+    # leaves the last block's warps part empty); chunks: spans around the
+    # 2048 codes a warp holds at once, and 30,000 residues; x-heavy: '*',
+    # 'X', 'x', 'B' at 30%, so sum(max(n - 7, 0)) far exceeds the count
+    rows = {"300-300": kernel_cases.build_rows(300, seed=300, max_len=300),
+            "77-1200": kernel_cases.build_rows(77, seed=77, max_len=1200),
+            "chunks": kernel_cases.build_rows(
+                60, seed=6, long_lens=(2039, 2040, 2041, 2048, 2049, 2057,
+                                       4080, 4105, 30000)),
+            "x-heavy": kernel_cases.build_rows(300, seed=3,
+                                               odd_rate=0.3)}[case]
+    key_f, _, _, seq = _extract_both(dev, rows)
     assert bool((key_f >= 0).any()) and bool((key_f < 0).any())
-    assert sid.shape[0] > 0
+    assert seq.shape[0] > 0 and int(seq.max()) < rows[3].shape[0]
+    if case == "x-heavy":
+        bound = int(np.maximum(rows[3].astype(np.int64) - 7, 0).sum())
+        assert seq.shape[0] < 0.5 * bound
+    if case == "chunks":
+        assert int((seq == int(np.argmax(rows[3]))).sum()) > 25_000
 
 
 @pytest.mark.parametrize("threshold", [0.8, 0.3])
 def test_build_select(dev, threshold):
     # heavy ties, the 80% edge (4 of 5, 8 of 10, 7 of 9), groups of 1500
-    # and 2000 occurrences, lengths up to 65535, first codes >= 32
-    hi, lo, func, off, plen, sid = (
-        torch.from_numpy(a.astype(np.int64)).to(dev)
-        for a in kernel_cases.select_windows(seed=21))
-    kmer = (hi << 24) | lo
-    windows = (build_extract.window_keys(kmer, func),
-               build_extract.window_keys(kmer, off), plen.to(torch.int32),
-               sid.to(torch.int32))
-    words, keep, _ = _select_both(dev, windows, threshold)
-    assert 0 < int(keep.sum()) < keep.shape[0]
+    # and 2000 occurrences, lengths up to 65535, first codes >= 32; ids up
+    # to 2^24, densified as SignatureBuilder._select does
+    win = kernel_cases.select_windows(seed=21)
+    sids, seq = np.unique(win[5], return_inverse=True)
+    windows = _windows(dev, win[:5] + (seq.astype(np.int32),))
+    s = _sorted(windows)
+    words, flags = _select_both(dev, s, sids.shape[0], threshold)
+    # some groups kept and some not, some sequences flagged and some not
+    n_groups = torch.unique_consecutive(s[0] >> 16).shape[0]
+    assert 0 < words.shape[0] < n_groups
+    assert 0 < int(flags.sum()) < flags.shape[0]
     # the whole selection on the card equals its plain run on the CPU
-    got = build_select.select_compact(*windows, threshold=threshold)
+    sids_t = torch.from_numpy(sids.astype(np.int32))
+    got = build_select.select_compact(*windows, threshold=threshold,
+                                      sids=sids_t.to(dev))
     want = build_select.select_compact(*(w.cpu() for w in windows),
-                                       threshold=threshold)
+                                       threshold=threshold, sids=sids_t)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("threshold", [0.8, 0.3])
+def test_build_select_tile_edges(dev, threshold):
+    # groups of exactly a tile and of several tiles, groups ending on a
+    # tile's last entry and starting on its first, across the halo's edge,
+    # ties across a 32-entry step and across the halo, singleton tiles, a
+    # last group ending on N; then N below one tile (a prefix, and a run
+    # cut mid-group), one entry, and the sparse sids of files of 3000
+    win = kernel_cases.select_tile_edges(5, build_select.TILE,
+                                         build_select.SMALL)
+    sids = torch.from_numpy(kernel_cases.sparse_sids(5000))
+    windows = _windows(dev, win)
+    s = _sorted(windows)
+    words, flags = _select_both(dev, s, 5000, threshold)
+    assert words.shape[0] > 100 and 0 < int(flags.sum()) < 5000
+    for a, b in ((0, 700), (1500, 2600), (5115, 5125), (0, 1), (7000, 7001)):
+        _select_both(dev, tuple(x[a:b].clone() for x in s), 5000, threshold)
+    # a view off a 16-byte boundary raises before any launch
+    before = build_select.build_select_runs.launches
+    with pytest.raises(ValueError, match="aligned"):
+        build_select.build_select_runs(*(x[1:] for x in s), 5000, threshold)
+    assert build_select.build_select_runs.launches == before
+    got = build_select.select_compact(*windows, threshold=threshold,
+                                      sids=sids.to(dev))
+    want = build_select.select_compact(*(w.cpu() for w in windows),
+                                       threshold=threshold, sids=sids)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert int(got[1].max()) > 100_000
+
+
+def test_build_kernels_refuse_bad_arguments(dev):
+    # sequence indices at n_seqs and below 0, and scratch arrays one word
+    # short, raise on the card instead of writing past their arrays
+    win = kernel_cases.select_tile_edges(5, build_select.TILE,
+                                         build_select.SMALL)
+    k1s, plen_s, k2s, seq_s = _sorted(_windows(dev, win))
+    for bad in (5000, -1):
+        with pytest.raises(ValueError, match="outside"):
+            build_select.build_select_runs(
+                k1s, plen_s, k2s, torch.full_like(seq_s, bad), 5000, 0.3)
+    N = k1s.shape[0]
+    words = torch.empty((N, 4), dtype=torch.int32, device=dev)
+    flags = torch.zeros(5000, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="scratch"):
+        build_select.launch_select(k1s, plen_s, k2s, seq_s, 0.8, words,
+                                   flags, build_select.select_scratch(N, dev)[1:])
+    rows = [torch.from_numpy(a).to(dev)
+            for a in kernel_cases.build_rows(77, seed=77, max_len=1200)[:4]]
+    outs = [torch.empty(rows[0].shape[0], dtype=t, device=dev)
+            for t in (torch.int64, torch.int64, torch.int32, torch.int32)]
+    with pytest.raises(ValueError, match="scratch"):
+        build_extract.launch_extract(
+            *rows, outs, build_extract.extract_scratch(77, dev)[1:])
+
+
+def test_build_select_singletons(dev):
+    # 300K random windows: nearly all groups singletons, whole tiles of
+    # them, and the kept count far above one tile's
+    rng = np.random.default_rng(4)
+    n = 300_000
+    win = (rng.integers(0, 1 << 24, n).astype(np.uint32),
+           rng.integers(0, 1 << 24, n).astype(np.uint32),
+           rng.integers(0, 50_000, n).astype(np.int32),
+           rng.integers(0, 1 << 16, n).astype(np.int32),
+           rng.integers(30, 5000, n).astype(np.int32),
+           rng.integers(0, 1 << 16, n).astype(np.int32))
+    words, flags = _select_both(dev, _sorted(_windows(dev, win)), 1 << 16,
+                                0.8)
+    assert words.shape[0] > n - 10
 
 
 def test_build_at_scale(dev):
     # 300K sequences of lengths U[8, 600] (~88M windows, the reference's
     # build size), both kernels in turn on the card
-    windows = _extract_both(
-        dev, kernel_cases.build_rows(300_000, seed=5, max_len=600))
+    rows = kernel_cases.build_rows(300_000, seed=5, max_len=600)
+    windows = _extract_both(dev, rows)
     assert windows[0].shape[0] > 60_000_000
-    words, keep, entry_kept = _select_both(dev, windows, 0.8)
-    assert int(keep.sum()) > 0
+    words, flags = _select_both(dev, _sorted(windows), 300_000, 0.8)
+    assert words.shape[0] > 0 and int(flags.sum()) > 0
