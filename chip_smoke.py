@@ -22,10 +22,12 @@ Phases, in order; any failure exits non-zero:
    [200, 400), the probe's random streams, and testing.automaton_rows:
    the edge rows and random rows at W 48 and 304 with mad_floor 30.0 and
    30.1, B 77, and a 64-row chunk of W 16384).  Then the random-row
-   ceiling: torch.index_select of the buckets that the uniform chunk's
-   valid windows hit, from the smoke table's 1 GiB of probe rows viewed
-   as 16-, 32- and 64-byte rows and from its 24-byte aux rows (each
-   probe's gather_ms).  Then the two fused probes, which read the
+   ceiling: the buckets that the uniform chunk's valid windows hit,
+   gathered from the smoke table's 1 GiB of probe rows viewed as 16-,
+   20-, 24-, 32- and 64-byte rows and from its 24- and 32-byte aux rows,
+   each by torch.index_select, an advanced index and torch.take of the
+   rows' 4-, 8- or 16-byte words, the fastest standing (row_gather_ms;
+   each probe's gather_ms).  Then the two fused probes, which read the
    transfer rows themselves: the aux probe (the uniform chunk on the
    smoke table with its aux rows, the pack's edge rows at W < L and
    W = L, rows of testing.value_entries' keys with lengths past L at
@@ -40,8 +42,10 @@ Phases, in order; any failure exits non-zero:
    second bucket, every slot, empty slots, aliens, invalid windows;
    testing.cmph_cases: a BDZ store over keys with lower-case codes, all
    64 codes among the aliens, and a store made by hand whose rank gives
-   idx == m), plain and aux, with and without an ignored function; their
-   full-size checks and times run at the start of 3e.  Bit-identical
+   idx == m), plain and aux, with and without an ignored function, on
+   the stores' device layouts (padded rows, slot-major aux; vfm and the
+   per-vertex records); their full-size checks and times run at the
+   start of 3e.  Bit-identical
    outputs are required; hi/lo are compared under the call mask, the
    probe's fm under valid, the aux probe's words under found (and 0
    elsewhere), kernels 8 and 9 everywhere.
@@ -77,11 +81,15 @@ Phases, in order; any failure exits non-zero:
    reference CMPH store (native BDZ, write_cmph_store: kmer_data.mph +
    .dat, no final.kmers), each with a function.index, opened through
    pipeline.load_data_dir (the CMPH one with cmph_aliasing=True).  First
-   kernels 8 (probe_bucket) and 9 (probe_cmph), plain and aux, on the
-   uniform chunk's 8192 x 304 windows against their plain versions,
-   timed as issued and held, beside their bound (the 32-byte sectors
-   that the row, rank and value reads touch; g left out while it fits
-   L2) and gather_ms (torch.index_select of the same random rows).  Then
+   each store's device layout (to_device, aux_to_device: seconds, MiB,
+   peak), then kernels 8 (probe_bucket) and 9 (probe_cmph), plain and
+   aux, on the uniform chunk's 8192 x 304 windows against their plain
+   versions, timed as issued and held, beside their bound (the 32-byte
+   sectors that the padded rows, aux records, vfm words and vertex
+   records touch; g left out while it fits L2), the old layouts' count
+   of the same windows (24-byte rows; rank, then value words), the sectors per
+   valid window and gather_ms (the fastest torch gather of the same
+   random rows).  Then
    on each store, launch counts reset: call_batch of uniform300 and
    mixed60_600 (call_batch 8192; a warm-up, two timed calls each), a
    2048-row keep-hits pass, and on the cuckoo store a matrix distance of
@@ -920,15 +928,15 @@ def layout_edge_checks(dev, differences, seed: int) -> dict:
     for table, q in kernel_cases.cmph_cases(200_000, seed + 1):
         win = on_dev(q)
         tabs = table.to_device(dev, with_aux=True)
-        kw = dict(seed=table.mph.seed, r=table.mph.r, m=table.mph.m)
+        kw = dict(seed=table.mph.seed, r=table.mph.r, n_live=table.n_live)
         ignore = int(table.v0[0] >> 16)
         n_corner = int((~table.lookup_np(q[0], q[1])[0] & q[2]).sum())
-        check("probe_cmph", f"m {table.mph.m}, r {table.mph.r}, {n_corner} "
-              f"valid windows with idx == m", [
+        check("probe_cmph", f"m {table.mph.m}, r {table.mph.r}, n_live "
+              f"{table.n_live}, {n_corner} valid windows with idx == m", [
                   *(("probe_cmph",
-                     probe.probe_cmph(*win, *tabs[:4], ignore_function=i,
+                     probe.probe_cmph(*win, *tabs[:2], ignore_function=i,
                                       **kw),
-                     probe.probe_cmph_reference(*win, *tabs[:4],
+                     probe.probe_cmph_reference(*win, *tabs[:2],
                                                 ignore_function=i, **kw))
                     for i in (-1, ignore)),
                   ("probe_cmph_aux", probe.probe_cmph_aux(*win, *tabs, **kw),
@@ -941,8 +949,8 @@ def layout_edge_checks(dev, differences, seed: int) -> dict:
 def bucket_reads(table, packed_t, win):
     """The rows that a probe of the windows reads on a cuckoo table: row
     h1 of each valid window, row h2 of each that row h1 missed, and the
-    aux row at the winning bucket of each found one.  -> (main row
-    indices, aux row indices), int64 on the card."""
+    winning bucket and slot of each found one (its aux record).  ->
+    (main row indices, winning rows, winning slots), int64 on the card."""
     import torch
 
     from signature_kmers_tpu_torch.ops import hashing
@@ -955,18 +963,51 @@ def bucket_reads(table, packed_t, win):
         row = packed_t[b].to(torch.int64) & 0xFFFFFFFF
         return ((row[..., :S] == (hi.to(torch.int64) & 0xFFFFFFFF)[..., None])
                 & (row[..., S:2 * S] == (lo.to(torch.int64)
-                                         & 0xFFFFFFFF)[..., None])).any(-1)
+                                         & 0xFFFFFFFF)[..., None]))
 
-    m1 = hit(b1) & valid
-    m2 = hit(b2) & valid & ~m1
+    s1, s2 = hit(b1), hit(b2)
+    m1 = s1.any(-1) & valid
+    m2 = s2.any(-1) & valid & ~m1
     return (torch.cat([b1[valid], b2[valid & ~m1]]),
-            torch.cat([b1[m1], b2[m2]]))
+            torch.cat([b1[m1], b2[m2]]),
+            torch.cat([s1[m1].int().argmax(-1), s2[m2].int().argmax(-1)]))
 
 
 def row_sectors(idx, row_bytes: int) -> int:
     """32-byte sectors that reads of rows idx (row_bytes each) touch."""
     first = idx * row_bytes
     return int(((first + row_bytes - 1) // 32 - first // 32 + 1).sum())
+
+
+def row_gather_ms(rows_t, ix):
+    """Rows ix of the (n, w) int32 rows_t gathered by torch calls:
+    index_select, an advanced index, and torch.take of the rows' words at
+    ix * w + arange(w) (that index made beforehand); where the row is a
+    whole number of 8- or 16-byte words, the advanced index and the take
+    of those wider words too.  Each gives the same rows; -> (the
+    fastest's ms, its name, {name: ms})."""
+    import torch
+
+    def takes(rows, label):
+        w = rows.shape[1]
+        words = (ix[:, None] * w + torch.arange(w, device=ix.device)).view(-1)
+        return {f"advanced index{label}": lambda: rows[ix],
+                f"take of{label} words": lambda: torch.take(rows, words)}
+
+    calls = {"index_select": lambda: torch.index_select(rows_t, 0, ix),
+             **takes(rows_t, "")}
+    row_bytes = rows_t.shape[1] * 4
+    for dt, size in ((torch.complex128, 16), (torch.int64, 8)):
+        if row_bytes % size == 0:
+            calls.update(takes(rows_t.view(dt), f" {size}-byte"))
+            break
+    want = calls["index_select"]()
+    if not all(torch.equal(f().view(torch.int32).view(want.shape), want)
+               for f in calls.values()):
+        fail("the torch row gathers disagree")
+    all_ms = {k: time_ms(f, 20) for k, f in calls.items()}
+    best = min(all_ms, key=all_ms.get)
+    return all_ms[best], best, all_ms
 
 
 def layouts_phase(card, report, record, differences, hold_path_calls,
@@ -1037,8 +1078,8 @@ def layouts_phase(card, report, record, differences, hold_path_calls,
             fail("phase 3e: load_data_dir did not open the written stores")
         print(f"cuckoo store: {cuckoo.n_items} keys, {cuckoo.n_buckets} "
               f"buckets of {cuckoo.slots} slots "
-              f"({cuckoo.packed.nbytes / 2**20:.0f} MiB probe rows + as "
-              f"much aux), built natively in {cuckoo_s:.4f} s, saved in "
+              f"({cuckoo.packed.nbytes / 2**20:.0f} MiB of host probe rows "
+              f"+ as much aux), built natively in {cuckoo_s:.4f} s, saved in "
               f"{cuckoo_save_s:.4f} s, opened by load_data_dir in "
               f"{cuckoo_load_s:.4f} s; CMPH store: m {mph.m}, r {mph.r}, "
               f"g {mph.g.nbytes / 2**20:.1f} MiB, BDZ build + search + "
@@ -1051,12 +1092,25 @@ def layouts_phase(card, report, record, differences, hold_path_calls,
         stream = 14 * n_win  # hi, lo, valid in; found, fm out
         for name, table in (("probe_bucket", cuckoo), ("probe_cmph",
                                                        cstore)):
-            tabs = table.to_device(dev, with_aux=True)
+            # the device layout, as a caller's first call makes it
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            base = table.to_device(dev)
+            torch.cuda.synchronize()
+            open_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tabs = base + table.aux_to_device(dev)
+            torch.cuda.synchronize()
+            aux_open_s = time.perf_counter() - t0
+            table_mib = [sum(t.numel() * t.element_size() for t in x) / 2**20
+                         for x in (base, tabs[len(base):])]
+            layout_peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
             fn, geo = probe.table_probe(table)
             afn, _ = probe.table_probe(table, with_aux=True)
             plain = getattr(probe, f"{name}_reference")
             aplain = getattr(probe, f"{name}_aux_reference")
-            base = tabs[:-1]
             got, want = fn(*c_win, *base, **geo), plain(*c_win, *base, **geo)
             agot = afn(*c_win, *tabs, **geo)
             awant = aplain(*c_win, *tabs, **geo)
@@ -1064,51 +1118,65 @@ def layouts_phase(card, report, record, differences, hold_path_calls,
             n2, e2 = differences(f"{name}_aux", agot, awant)
             n_found = int(awant[0].sum())
             if name == "probe_bucket":
-                main_rows, aux_rows = bucket_reads(table, tabs[0], c_win)
-                rb = 12 * table.slots
-                sect = row_sectors(main_rows, rb)
-                aux_sect = row_sectors(aux_rows, rb)
-                rows6 = tabs[0]
-                gather = [lambda: torch.index_select(rows6, 0, main_rows)]
-                agather = gather + [lambda: torch.index_select(
-                    tabs[1], 0, aux_rows)]
+                S = table.slots
+                main_rows, win_rows, win_slot = bucket_reads(table, tabs[0],
+                                                             c_win)
+                # new: padded rows (16*S bytes, whole sectors), one
+                # 16-byte aux record per found window; old layout: the
+                # host's 12*S-byte rows for both
+                sect = row_sectors(main_rows, 16 * S)
+                aux_sect = win_rows.numel()
+                old_sect = row_sectors(main_rows, 12 * S)
+                old_aux_sect = row_sectors(win_rows, 12 * S)
+                recs = tabs[1].view(-1, 4)
+                rec_ix = win_rows * S + win_slot
+                gather = [(tabs[0], main_rows)]
+                agather = gather + [(recs, rec_ix)]
+                # the yardstick of the two layouts: the same rows from the
+                # host's unpadded rows
+                rows_host = torch.from_numpy(table.packed.view(np.int32))
+                g_host = row_gather_ms(rows_host.to(dev), main_rows)
+                extra = dict(gather_host_rows_ms=g_host[0])
                 ops = 45 * (n_valid + main_rows.numel())
                 detail = (f"{main_rows.numel()} row reads "
-                          f"({main_rows.numel() - n_valid} second rows), "
-                          f"{sect} sectors; aux {aux_rows.numel()} rows")
+                          f"({main_rows.numel() - n_valid} second rows) "
+                          f"of {16 * S} B, {sect} sectors ({12 * S}-byte "
+                          f"rows: {old_sect}; gathered at {12 * S} B by "
+                          f"{g_host[1]}: {g_host[0]:.4f} ms); aux "
+                          f"{aux_sect} records of 16 B")
             else:
-                vert = table.vertices_np(c_win[0].cpu().numpy().view(
-                    np.uint32)[c_win[2].cpu().numpy()],
-                    c_win[1].cpu().numpy().view(np.uint32)[
-                        c_win[2].cpu().numpy()])
-                vert_t = torch.from_numpy(vert).to(dev)
-                idx_t = tabs[1][vert_t].to(torch.int64)
-                idx_t = idx_t[idx_t < table.mph.m]
-                # the rank sector of each valid window, then v0 and v1
-                # (and v2) of each found one; g (in L2 when it fits) left
-                # out
+                vert = probe.cmph_vertices(c_win[0], c_win[1], tabs[0],
+                                           seed=geo["seed"], r=geo["r"])
+                vert = vert[c_win[2] & (vert < geo["n_live"])]
+                # new: one vfm sector (aux: one vrec sector) per found
+                # window; old layout: a rank sector per valid window, then
+                # v0 and v1 (aux: and v2) sectors per found one; g (in L2
+                # when it fits) left out of both
                 g_bytes = table.mph.g.nbytes
-                sect = n_valid + 2 * idx_t.numel() + (
-                    0 if g_bytes <= L2_BYTES else 3 * n_valid)
-                aux_sect = idx_t.numel()
-                rank_t, v0_t, v1_t, v2_t = tabs[1:]
-                gather = [lambda: torch.index_select(rank_t, 0, vert_t),
-                          lambda: torch.index_select(v0_t, 0, idx_t),
-                          lambda: torch.index_select(v1_t, 0, idx_t)]
-                agather = gather + [lambda: torch.index_select(v2_t, 0,
-                                                               idx_t)]
+                g_sect = 0 if g_bytes <= L2_BYTES else 3 * n_valid
+                sect = vert.numel() + g_sect
+                aux_sect = 0  # the aux probe reads vrec in place of vfm
+                old_sect = n_valid + 2 * vert.numel() + g_sect
+                old_aux_sect = vert.numel()
+                gather = [(tabs[1].view(-1, 1), vert)]
+                agather = [(tabs[2], vert)]
                 ops = 60 * n_valid
-                detail = (f"{n_valid} rank reads, {idx_t.numel()} found "
-                          f"(aliasing); g {g_bytes / 2**20:.1f} MiB")
+                extra = {}
+                detail = (f"{vert.numel()} vertex reads (aliasing), "
+                          f"n_live {table.n_live} of {table.mph.n} "
+                          f"vertices; g {g_bytes / 2**20:.1f} MiB")
             record(name, n1 + n2, max(e1, e2),
                    time_ms(lambda: fn(*c_win, *base, **geo), 20),
                    time_ms(lambda: plain(*c_win, *base, **geo), 3),
                    stream + 32 * sect, ops)
+            g_ms = [row_gather_ms(*x) for x in gather]
+            ag_ms = [row_gather_ms(*x) for x in agather]
             r = report[name]
             r.update(
                 held_ms=time_ms(lambda: fn(*c_win, *base, **geo), 20,
                                 hold=True),
-                gather_ms=time_ms(lambda: [f() for f in gather], 20),
+                gather_ms=sum(x[0] for x in g_ms),
+                gather_calls=[x[1] for x in g_ms],
                 aux_ms=time_ms(lambda: afn(*c_win, *tabs, **geo), 20),
                 aux_held_ms=time_ms(lambda: afn(*c_win, *tabs, **geo), 20,
                                     hold=True),
@@ -1116,17 +1184,42 @@ def layouts_phase(card, report, record, differences, hold_path_calls,
                                      3),
                 aux_bound_ms=bound_ms(stream + 12 * n_win
                                       + 32 * (sect + aux_sect), ops)[0],
-                aux_gather_ms=time_ms(lambda: [f() for f in agather], 20),
-                path_shape=f"{c_win[0].shape[0]} x {c_win[0].shape[1]}")
+                aux_gather_ms=sum(x[0] for x in ag_ms),
+                aux_gather_calls=[x[1] for x in ag_ms],
+                bound_ms_old_count=bound_ms(stream + 32 * old_sect, ops)[0],
+                aux_bound_ms_old_count=bound_ms(
+                    stream + 12 * n_win + 32 * (old_sect + old_aux_sect),
+                    ops)[0],
+                sectors_per_valid=sect / n_valid,
+                aux_sectors_per_valid=(sect + aux_sect) / n_valid,
+                to_device_s=open_s, aux_to_device_s=aux_open_s,
+                device_table_mib=table_mib[0],
+                device_aux_mib=table_mib[1],
+                layout_peak_gib=layout_peak,
+                path_shape=f"{c_win[0].shape[0]} x {c_win[0].shape[1]}",
+                **extra)
+            print(f"{name} device layout: to_device {open_s:.4f} s "
+                  f"({table_mib[0]:.1f} MiB), aux_to_device "
+                  f"{aux_open_s:.4f} s ({table_mib[1]:.1f} MiB), peak "
+                  f"{layout_peak:.3f} GiB above what was held [{card}]")
             print(f"{name} on the full-size store, the uniform chunk's "
                   f"{n_win} windows ({n_valid} valid, {n_found} found; "
                   f"{detail}): {r['ms']:.4f} ms as issued, "
-                  f"{r['held_ms']:.4f} held, bound {r['bound_ms']:.4f}, "
-                  f"gather {r['gather_ms']:.4f}, plain {r['plain_ms']:.4f}; "
-                  f"aux {r['aux_ms']:.4f} as issued, {r['aux_held_ms']:.4f} "
-                  f"held, bound {r['aux_bound_ms']:.4f}, gather "
-                  f"{r['aux_gather_ms']:.4f}, plain {r['aux_plain_ms']:.4f}; "
-                  f"{n1 + n2} words differ [{card}]")
+                  f"{r['held_ms']:.4f} held, {sect / n_valid:.4f} sectors "
+                  f"per valid window at {sect / r['held_ms'] / 1e6:.2f} G "
+                  f"sectors/s held; bound {r['bound_ms']:.4f} (old "
+                  f"layout's count {r['bound_ms_old_count']:.4f}), gather "
+                  f"{r['gather_ms']:.4f} ({', '.join(r['gather_calls'])}), "
+                  f"plain {r['plain_ms']:.4f}; aux {r['aux_ms']:.4f} as "
+                  f"issued, {r['aux_held_ms']:.4f} held, "
+                  f"{(sect + aux_sect) / n_valid:.4f} sectors per valid "
+                  f"window at {(sect + aux_sect) / r['aux_held_ms'] / 1e6:.2f}"
+                  f" G sectors/s held; bound {r['aux_bound_ms']:.4f} (old "
+                  f"layout's count {r['aux_bound_ms_old_count']:.4f}), gather "
+                  f"{r['aux_gather_ms']:.4f} "
+                  f"({', '.join(r['aux_gather_calls'])}), plain "
+                  f"{r['aux_plain_ms']:.4f}; {n1 + n2} words differ "
+                  f"[{card}]")
             del tabs, base, got, want, agot, awant, gather, agather
         if any(report[k]["mismatches"] for k in ("probe_bucket",
                                                  "probe_cmph")):
@@ -1621,13 +1714,14 @@ def main() -> int:
 
     # ---- step 0: what random table rows cost on this card ----------------
     # the buckets that the uniform chunk's valid windows hit on the smoke
-    # table, in chunk order, gathered by torch.index_select from the 1 GiB
-    # of probe rows viewed as 16-, 20-, 32- and 64-byte rows (the indices
-    # scaled into range), from the host's 24-byte aux rows and from the
-    # device's aux rows, padded to 32 bytes: the yardstick of each probe's
-    # random reads (gather_ms).  torch's gathers take one path for rows
-    # whose bytes are a multiple of 16 and another for the rest (20 and 24
-    # bytes here), which shows the card's own rate
+    # table, in chunk order, gathered from the 1 GiB of probe rows viewed
+    # as 16-, 20-, 24-, 32- and 64-byte rows (the indices scaled into
+    # range), from the host's 24-byte aux rows and from the device's aux
+    # rows, padded to 32 bytes: the yardstick of each probe's random reads
+    # (gather_ms).  Each width is gathered by several torch calls and the
+    # fastest stands (row_gather_ms): torch.index_select alone runs at
+    # 1.66 G rows/s at 16, 32 and 64 bytes against ~19.5 at 20 and 24
+    # (PERF.md), a slow path of its own and not the card's rate
     c_win = kmer_pack.pack_call_windows_rows16(c_rows, c_start, c_len, L, W)
     c_bkt, _ = hashing.wide_bucket_tag_t(
         *hashing.perm48_t(c_win[0], c_win[1], table.salt), table.bits)
@@ -1635,27 +1729,32 @@ def main() -> int:
     aux_t, ov_aux_t = table.aux_to_device(dev)
     flat_rows = packed_t.view(-1)
     aux24_t = torch.from_numpy(table.aux.view(np.int32)).to(dev)
-    gather_ms = {}
+    gather_ms, gather_call = {}, {}
     for label, rows_t, ix in (
             ("16 B probe rows", flat_rows.view(-1, 4), idx // 1),
             ("20 B rows", flat_rows[:flat_rows.numel() // 5 * 5].view(-1, 5),
              idx * 4 // 5),
+            ("24 B rows", flat_rows[:flat_rows.numel() // 6 * 6].view(-1, 6),
+             idx * 2 // 3),
             ("24 B aux rows", aux24_t, idx),
             ("32 B padded aux rows", aux_t, idx),
             ("32 B rows", flat_rows.view(-1, 8), idx // 2),
             ("64 B rows", flat_rows.view(-1, 16), idx // 4)):
-        ms = time_ms(lambda: torch.index_select(rows_t, 0, ix), 20)
+        ms, call, all_ms = row_gather_ms(rows_t, ix)
         row_bytes = rows_t.shape[1] * 4
-        first = ix * row_bytes
-        sectors = int(((first + row_bytes - 1) // 32 - first // 32 + 1).sum())
+        sectors = row_sectors(ix, row_bytes)
         gather_ms[label] = ms
-        print(f"random rows: index_select of {ix.numel()} {label} of "
-              f"{rows_t.numel() * 4 / 2**30:.2f} GiB: {ms:.4f} ms, "
+        gather_call[label] = call
+        print(f"random rows: {ix.numel()} {label} of "
+              f"{rows_t.numel() * 4 / 2**30:.2f} GiB by {call}: {ms:.4f} ms, "
               f"{ix.numel() / ms / 1e6:.2f} G rows/s, {sectors} sectors "
               f"touched, {sectors / ms / 1e6:.2f} G sectors/s "
-              f"({sectors * 32 / ms / 1e9:.3f} TB/s of sectors) [{card}]")
+              f"({sectors * 32 / ms / 1e9:.3f} TB/s of sectors); "
+              + ", ".join(f"{k} {v:.4f}" for k, v in all_ms.items())
+              + f" [{card}]")
     del aux24_t
-    report["probe_wide"]["gather_ms"] = gather_ms["16 B probe rows"]
+    report["probe_wide"].update(gather_ms=gather_ms["16 B probe rows"],
+                                gather_calls=[gather_call["16 B probe rows"]])
 
     # the aux probe, with the pack fused in: the real uniform chunk's rows
     # on the smoke table with its aux rows (2 slots: 32-byte device rows,
@@ -1726,6 +1825,8 @@ def main() -> int:
     report["probe_wide_aux"].update(
         gather_ms=(gather_ms["16 B probe rows"]
                    + gather_ms["32 B padded aux rows"]),
+        gather_calls=[gather_call["16 B probe rows"],
+                      gather_call["32 B padded aux rows"]],
         bound_ms_before=aux_before,
         held_ms=time_ms(lambda: probe.probe_wide_aux(*c_args, *tabs4,
                                                      **probe_kw), 20,
@@ -1831,7 +1932,8 @@ def main() -> int:
     d_before = bound_ms(pack_bytes + 9 * n_win_c + n_win_c * 10 + 4 * B
                         + 32 * (n_valid_c + n_found_c) + leaf_c, 0)[0]
     report["probe_wide_distance"].update(
-        gather_ms=gather_ms["32 B rows"], bound_ms_before=d_before,
+        gather_ms=gather_ms["32 B rows"],
+        gather_calls=[gather_call["32 B rows"]], bound_ms_before=d_before,
         held_ms=time_ms(lambda: probe.probe_wide_distance(
             *c_args, *drows_t, **d_kw), 20, hold=True),
         path_shape="256 x 288",
@@ -2207,7 +2309,15 @@ def main() -> int:
                                    "aux_held_ms", "aux_plain_ms",
                                    "aux_bound_ms", "aux_gather_ms",
                                    "aux_launches", "edge_mismatches",
-                                   "cuckoo_build_s", "bdz_store_write_s")
+                                   "cuckoo_build_s", "bdz_store_write_s",
+                                   "gather_calls", "aux_gather_calls",
+                                   "bound_ms_old_count",
+                                   "aux_bound_ms_old_count",
+                                   "gather_host_rows_ms",
+                                   "sectors_per_valid",
+                                   "aux_sectors_per_valid", "to_device_s",
+                                   "aux_to_device_s", "device_table_mib",
+                                   "device_aux_mib", "layout_peak_gib")
                  if k in r}
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces, launches=path_launches[name],

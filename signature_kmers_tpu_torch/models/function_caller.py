@@ -197,7 +197,7 @@ class FunctionCaller:
         """The table's words on the caller's device, as its probe takes
         them: the layout's to_device(device), then with_aux its
         aux_to_device(device) (wide: packed, ov_packed[, aux, ov_aux];
-        cuckoo: packed[, aux]; CMPH: g, rank, v0, v1[, v2]).  Each part
+        cuckoo: packed[, aux]; CMPH: g, vfm[, vrec]).  Each part
         is uploaded at first use: matrix distance on a wide table reads
         neither (it holds distance rows), and the call path never reads
         the aux part."""

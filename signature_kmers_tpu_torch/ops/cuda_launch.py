@@ -73,7 +73,7 @@ ENTRY_POINTS = {
         "probe_wide", "skt_probe_wide_distance",
         [PTR, INT, PTR, PTR, INT, INT, INT, PTR, INT, UINT, INT, PTR, INT,
          UINT, INT, INT, INT, INT, FLOAT, FLOAT, PTR]),
-    # with the aux pointer (bucket) or v2 (CMPH) NULL: the probe without
+    # with the aux pointer (bucket) or vrec (CMPH) NULL: the probe without
     # value words, and r0..r2 NULL too
     "probe_bucket": (
         "probe_bucket", "skt_probe_bucket",
@@ -81,8 +81,8 @@ ENTRY_POINTS = {
          PTR, PTR]),
     "probe_cmph": (
         "probe_cmph", "skt_probe_cmph",
-        [PTR, PTR, PTR, LONG, PTR, PTR, PTR, PTR, PTR, UINT, UINT, INT, INT,
-         PTR, PTR, PTR, PTR, PTR]),
+        [PTR, PTR, PTR, LONG, PTR, PTR, PTR, UINT, UINT, UINT, INT, PTR, PTR,
+         PTR, PTR, PTR]),
     "device_automaton_packed": (
         "automaton", "skt_automaton_packed",
         [PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, FLOAT, PTR]),

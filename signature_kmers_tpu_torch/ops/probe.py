@@ -19,8 +19,9 @@ version of each fused one is the pack's plain version, then the lookup's
 (lookup_aux_reference, lookup_distance_reference) on the same rows.
 
 The other layouts' probes take (hi, lo, valid) words too, with an aux
-variant each: probe_bucket (the cuckoo table, csrc/probe_bucket.cu) and
-probe_cmph (a reference CMPH store with its aliasing,
+variant each: probe_bucket (the cuckoo table, rows padded to whole
+32-byte sectors; csrc/probe_bucket.cu) and probe_cmph (a reference CMPH
+store with its aliasing, one word or record per BDZ vertex;
 csrc/probe_cmph.cu).  table_probe picks a table's probe; distance_filter
 is the matrix-distance filter that runs as torch operations after an
 aux probe on those layouts.
@@ -390,22 +391,23 @@ probe_wide_distance.launches = 0
 
 def lookup_bucket_reference(hi, lo, valid, packed, aux=None, *, salt: int):
     """Plain two-choice bucket lookup (the JAX package's ops/probe.py:
-    probe_bucket, int64 arithmetic, any device) -> (found, fm[, r0, r1,
-    r2]) as int64, found masked by valid and every word 0 where nothing
-    was found.  packed, aux: (n_buckets, 3*slots) int32 rows [khi*s,
-    klo*s, fm*s] and [v0*s, v1*s, v2*s]."""
-    s = packed.shape[1] // 3
+    probe_bucket, int64 arithmetic, any device) on the device layout
+    (BucketKmerTable.to_device) -> (found, fm[, r0, r1, r2]) as int64,
+    found masked by valid and every word 0 where nothing was found.
+    packed: (n_buckets, 4*slots) int32 rows [khi*s, klo*s, fm*s, 0*s];
+    aux: (n_buckets, 4*slots) slot-major [v0, v1, v2, 0] per slot."""
+    s = packed.shape[1] // 4
     q_hi = hi.to(torch.int64) & _M32
     q_lo = lo.to(torch.int64) & _M32
     b1, b2 = hashing.bucket_hashes_t(hi, lo, salt, packed.shape[0])
 
     def match(b):
-        row = packed[b].to(torch.int64) & _M32  # (..., 3*slots)
+        row = packed[b].to(torch.int64) & _M32  # (..., 4*slots)
         m = (row[..., :s] == q_hi[..., None]) & (row[..., s:2 * s]
                                                  == q_lo[..., None])
         # at most one slot matches (keys are unique): the masked sum
         # selects it
-        return m.any(dim=-1), (row[..., 2 * s:] * m).sum(dim=-1), m
+        return m.any(dim=-1), (row[..., 2 * s:3 * s] * m).sum(dim=-1), m
 
     f1, fm1, m1 = match(b1)
     f2, fm2, m2 = match(b2)
@@ -415,9 +417,9 @@ def lookup_bucket_reference(hi, lo, valid, packed, aux=None, *, salt: int):
         return found, fm
     bwin = torch.where(f1, b1, b2)
     mwin = torch.where(f1[..., None], m1, m2) & found[..., None]
-    arow = aux[bwin].to(torch.int64) & _M32
-    return (found, fm) + tuple((arow[..., k * s:(k + 1) * s] * mwin)
-                               .sum(dim=-1) for k in range(3))
+    arow = aux[bwin].to(torch.int64).view(*bwin.shape, s, 4) & _M32
+    return (found, fm) + tuple((arow[..., k] * mwin).sum(dim=-1)
+                               for k in range(3))
 
 
 def probe_bucket_reference(hi, lo, valid, packed, *, salt: int,
@@ -444,38 +446,52 @@ def _check_windows(hi, lo, valid):
 
 
 def _check_bucket(packed, aux):
+    """The device layout's geometry (both routes check it)."""
     tables = dict(packed=packed) if aux is None else dict(packed=packed,
                                                           aux=aux)
     for name, t in tables.items():
         cl.check(t, name, torch.int32)
     nb, words = packed.shape if packed.dim() == 2 else (0, 0)
-    if words not in (6, 12) or nb & (nb - 1) or nb == 0:
-        raise ValueError(f"packed: a power-of-two count of rows of 3*slots "
-                         f"words, 2 or 4 slots, expected; got shape "
-                         f"{tuple(packed.shape)}")
+    if words not in (8, 16) or nb & (nb - 1) or nb == 0:
+        raise ValueError(f"packed: a power-of-two count of rows of 4*slots "
+                         f"words (2 or 4 slots, each row padded to whole "
+                         f"32-byte sectors: BucketKmerTable.to_device) "
+                         f"expected; got shape {tuple(packed.shape)}")
     if aux is not None and aux.shape != packed.shape:
-        raise ValueError("aux rows must have the probe rows' shape")
-    # 2-slot rows (24 bytes) are read as 8-byte words, 4-slot rows as
-    # 16-byte words
-    cl.check_aligned(16, **tables)
+        raise ValueError("aux rows must have the probe rows' shape "
+                         "(BucketKmerTable.aux_to_device)")
+    return tables
 
 
-def _launch_bucket(hi, lo, valid, packed, aux, salt, ignore_function):
+def _outputs(shape, dev, n_words: int):
+    """found (bool) and n_words int32 outputs of a window probe."""
+    return (torch.empty(shape, dtype=torch.bool, device=dev),
+            *(torch.empty(shape, dtype=torch.int32, device=dev)
+              for _ in range(n_words)))
+
+
+def _ptrs(outs, aux: bool):
+    """The output pointers as the C entry points take them: found, fm,
+    then r0..r2 or three NULLs."""
+    return [o.data_ptr() for o in outs] + ([] if aux else [None] * 3)
+
+
+def _launch_bucket(hi, lo, valid, tables, salt, ignore_function):
+    """tables: _check_bucket's."""
     shape = _check_windows(hi, lo, valid)
-    _check_bucket(packed, aux)
-    dev = hi.device
-    found = torch.empty(shape, dtype=torch.bool, device=dev)
-    words = [torch.empty(shape, dtype=torch.int32, device=dev)
-             for _ in range(1 if aux is None else 4)]
-    rw = words[1:] if aux is not None else [None] * 3
+    # the kernel reads the windows four at a time (16-byte loads), and a
+    # row is whole sectors only from a 32-byte boundary
+    cl.check_aligned(16, hi=hi, lo=lo, valid=valid)
+    cl.check_aligned(32, **tables)
+    packed, aux = tables["packed"], tables.get("aux")
+    outs = _outputs(shape, hi.device, 1 if aux is None else 4)
     cl.launch("probe_bucket",
               [hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), hi.numel(),
-               packed.data_ptr(), packed.shape[1] // 3, packed.shape[0],
+               packed.data_ptr(), packed.shape[1] // 4, packed.shape[0],
                salt & _M32, None if aux is None else aux.data_ptr(),
-               ignore_function, found.data_ptr(), words[0].data_ptr(),
-               *(None if w is None else w.data_ptr() for w in rw)],
-              dev)
-    return (found, *words)
+               ignore_function, *_ptrs(outs, aux is not None)],
+              hi.device)
+    return outs
 
 
 def probe_bucket(hi, lo, valid, packed, *, salt: int,
@@ -483,14 +499,16 @@ def probe_bucket(hi, lo, valid, packed, *, salt: int,
     """Probe a cuckoo table (table/bucket_table.py) for windows.
 
     hi, lo: int32 packed window words; valid: bool call mask; packed: the
-    table's int32 probe rows (BucketKmerTable.to_device); salt: the
-    table's.  -> (found bool, fm int32): found = key in the table & valid
-    & fm's function != ignore_function (-1: none); fm is the matched
-    slot's word wherever the key was found under valid, else 0."""
+    table's int32 probe rows, padded to whole sectors
+    (BucketKmerTable.to_device); salt: the table's.  -> (found bool, fm
+    int32): found = key in the table & valid & fm's function !=
+    ignore_function (-1: none); fm is the matched slot's word wherever
+    the key was found under valid, else 0."""
+    tables = _check_bucket(packed, None)
     if not cl.on_cuda(hi, lo, valid, packed):
         return probe_bucket_reference(hi, lo, valid, packed, salt=salt,
                                       ignore_function=ignore_function)
-    out = _launch_bucket(hi, lo, valid, packed, None, salt, ignore_function)
+    out = _launch_bucket(hi, lo, valid, tables, salt, ignore_function)
     probe_bucket.launches += 1
     return out
 
@@ -500,13 +518,14 @@ probe_bucket.launches = 0
 
 def probe_bucket_aux(hi, lo, valid, packed, aux, *, salt: int):
     """probe_bucket with the matched slot's three value words from the
-    aux rows (BucketKmerTable.to_device(with_aux=True)).  -> (found
-    bool, fm, r0, r1, r2 int32), found masked by valid only; every word
-    0 where nothing was found."""
+    slot-major aux rows (BucketKmerTable.to_device(with_aux=True)).  ->
+    (found bool, fm, r0, r1, r2 int32), found masked by valid only; every
+    word 0 where nothing was found."""
+    tables = _check_bucket(packed, aux)
     if not cl.on_cuda(hi, lo, valid, packed, aux):
         return probe_bucket_aux_reference(hi, lo, valid, packed, aux,
                                           salt=salt)
-    out = _launch_bucket(hi, lo, valid, packed, aux, salt, -1)
+    out = _launch_bucket(hi, lo, valid, tables, salt, -1)
     probe_bucket_aux.launches += 1
     return out
 
@@ -528,15 +547,12 @@ def _code_to_byte(device) -> torch.Tensor:
     return _CODE_TO_BYTE.to(device)
 
 
-def lookup_cmph_reference(hi, lo, valid, g, rank, v0, v1, v2=None, *,
-                          seed: int, r: int, m: int):
-    """Plain BDZ search with the reference's aliasing (the JAX package's
-    table/cmph_table.py: CmphKmerTable.probe, int64 arithmetic, any
-    device) -> (found, fm[, r0, r1, r2]) as int64.  A window's key is
-    hashed as the 8 bytes the reference stores (CODE_TO_BYTE), one
-    Jenkins mix gives three vertices, the 2-bit g values select one, and
-    its rank indexes the values; found = rank < m & valid, and every word
-    is 0 where not found."""
+def cmph_vertices(hi, lo, g, *, seed: int, r: int) -> torch.Tensor:
+    """Each window's selected BDZ vertex, int64 (the JAX package's
+    table/cmph_table.py: CmphKmerTable.probe up to the rank read): the
+    key's 8 bytes as the reference stores them (CODE_TO_BYTE), one
+    Jenkins mix gives three vertices, and the 2-bit g values select
+    one."""
     lut = _code_to_byte(hi.device)
 
     def word_le(w):
@@ -551,78 +567,92 @@ def lookup_cmph_reference(hi, lo, valid, g, rank, v0, v1, v2=None, *,
     hl = [(x % r) + k * r for k, x in enumerate(h)]
     gv = [(g[v >> 2].to(torch.int64) >> ((v & 3) << 1)) & 3 for v in hl]
     sel = (gv[0] + gv[1] + gv[2]) % 3
-    vertex = torch.where(sel == 0, hl[0], torch.where(sel == 1, hl[1], hl[2]))
-    idx = rank[vertex].to(torch.int64)
-    found = (idx < m) & valid
-    idx = torch.clamp(idx, max=m - 1)
-    words = [torch.where(found, v[idx].to(torch.int64) & _M32, 0)
-             for v in ((v0, v1) if v2 is None else (v0, v1, v2))]
+    return torch.where(sel == 0, hl[0], torch.where(sel == 1, hl[1], hl[2]))
+
+
+def lookup_cmph_reference(hi, lo, valid, g, vfm, vrec=None, *, seed: int,
+                          r: int, n_live: int):
+    """Plain BDZ search with the reference's aliasing, on the device
+    layout (CmphKmerTable.to_device; int64 arithmetic, any device) ->
+    (found, fm[, r0, r1, r2]) as int64: found = vertex < n_live & valid
+    (rank < m, the reference's only test), fm = vfm[vertex] or, with
+    vrec, the vertex's record (v0, v1, v2) and fm from v0 and v1; every
+    word 0 where not found."""
+    vertex = cmph_vertices(hi, lo, g, seed=seed, r=r)
+    found = (vertex < n_live) & valid
+    vertex = torch.where(found, vertex, 0)
+    if vrec is None:
+        return found, torch.where(found, vfm[vertex].to(torch.int64) & _M32,
+                                  0)
+    rec = vrec[vertex].to(torch.int64) & _M32
+    words = [torch.where(found, rec[..., k], 0) for k in range(3)]
     fm = (words[0] & 0xFFFF0000) | (words[1] & 0xFFFF)
-    return (found, fm) + (() if v2 is None else tuple(words))
+    return (found, fm, *words)
 
 
-def probe_cmph_reference(hi, lo, valid, g, rank, v0, v1, *, seed: int,
-                         r: int, m: int, ignore_function: int = -1):
+def probe_cmph_reference(hi, lo, valid, g, vfm, *, seed: int, r: int,
+                         n_live: int, ignore_function: int = -1):
     """Plain version of probe_cmph."""
-    found, fm = lookup_cmph_reference(hi, lo, valid, g, rank, v0, v1,
-                                      seed=seed, r=r, m=m)
+    found, fm = lookup_cmph_reference(hi, lo, valid, g, vfm, seed=seed, r=r,
+                                      n_live=n_live)
     found = found & (((fm >> 16) & 0xFFFF) != ignore_function)
     return found, hashing.to_i32(fm)
 
 
-def probe_cmph_aux_reference(hi, lo, valid, g, rank, v0, v1, v2, *,
-                             seed: int, r: int, m: int):
+def probe_cmph_aux_reference(hi, lo, valid, g, vfm, vrec, *, seed: int,
+                             r: int, n_live: int):
     """Plain version of probe_cmph_aux."""
-    found, *words = lookup_cmph_reference(hi, lo, valid, g, rank, v0, v1,
-                                          v2, seed=seed, r=r, m=m)
+    found, *words = lookup_cmph_reference(hi, lo, valid, g, vfm, vrec,
+                                          seed=seed, r=r, n_live=n_live)
     return (found,) + tuple(hashing.to_i32(w) for w in words)
 
 
-def _launch_cmph(hi, lo, valid, g, rank, v0, v1, v2, seed, r, m,
+def _check_cmph(g, vfm, vrec, r, n_live):
+    """The device layout's geometry (both routes check it)."""
+    if r <= 0 or 3 * r >= 1 << 31:
+        raise ValueError(f"bad BDZ geometry: r {r}")
+    if not 0 <= n_live <= 3 * r:
+        raise ValueError(f"n_live {n_live} out of range [0, 3r = {3 * r}]")
+    cl.check(g, "g", torch.uint8, (-(-3 * r // 4),))
+    cl.check(vfm, "vfm", torch.int32, (3 * r,))
+    if vrec is not None:
+        cl.check(vrec, "vrec", torch.int32, (3 * r, 4))
+
+
+def _launch_cmph(hi, lo, valid, g, vfm, vrec, seed, r, n_live,
                  ignore_function):
     shape = _check_windows(hi, lo, valid)
-    cl.check(g, "g", torch.uint8, (-(-3 * r // 4),))
-    cl.check(rank, "rank", torch.int32, (3 * r,))
-    for vname, v in (("v0", v0), ("v1", v1), ("v2", v2)):
-        if v is not None:
-            cl.check(v, vname, torch.int32)
-            if v.dim() != 1 or v.shape[0] < m:
-                raise ValueError(f"{vname}: at least m = {m} value words "
-                                 f"expected, got shape {tuple(v.shape)}")
-    if not 0 < m <= 3 * r or 3 * r >= 1 << 31:
-        raise ValueError(f"bad BDZ geometry: m {m}, r {r}")
-    dev = hi.device
-    found = torch.empty(shape, dtype=torch.bool, device=dev)
-    words = [torch.empty(shape, dtype=torch.int32, device=dev)
-             for _ in range(1 if v2 is None else 4)]
-    rw = words[1:] if v2 is not None else [None] * 3
+    if vrec is not None:  # one 16-byte load per record
+        cl.check_aligned(16, vrec=vrec)
+    outs = _outputs(shape, hi.device, 1 if vrec is None else 4)
     cl.launch("probe_cmph",
               [hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), hi.numel(),
-               g.data_ptr(), rank.data_ptr(), v0.data_ptr(), v1.data_ptr(),
-               None if v2 is None else v2.data_ptr(), seed & _M32, r, m,
-               ignore_function, found.data_ptr(), words[0].data_ptr(),
-               *(None if w is None else w.data_ptr() for w in rw)],
-              dev)
-    return (found, *words)
+               g.data_ptr(), vfm.data_ptr(),
+               None if vrec is None else vrec.data_ptr(), seed & _M32, r,
+               n_live, ignore_function, *_ptrs(outs, vrec is not None)],
+              hi.device)
+    return outs
 
 
-def probe_cmph(hi, lo, valid, g, rank, v0, v1, *, seed: int, r: int,
-               m: int, ignore_function: int = -1):
+def probe_cmph(hi, lo, valid, g, vfm, *, seed: int, r: int, n_live: int,
+               ignore_function: int = -1):
     """Probe a reference CMPH store (table/cmph_table.py) for windows,
     with the reference's aliasing: a key outside the set reads some real
     record (cmph_kmer.h:138-147).
 
-    hi, lo, valid: as probe_bucket takes them; g (uint8 bytes), rank
-    (int32 per vertex), v0, v1 (int32 value words): CmphKmerTable.
-    to_device; seed, r, m: the store's BDZ geometry.  -> (found bool, fm
-    int32): found = rank < m & valid & fm's function != ignore_function;
-    fm = (v0 & 0xFFFF0000) | (v1 & 0xFFFF) of the indexed record where
-    rank < m under valid, else 0."""
-    if not cl.on_cuda(hi, lo, valid, g, rank, v0, v1):
-        return probe_cmph_reference(hi, lo, valid, g, rank, v0, v1,
-                                    seed=seed, r=r, m=m,
+    hi, lo, valid: as probe_bucket takes them; g (uint8 bytes) and vfm
+    (int32 per vertex): CmphKmerTable.to_device; seed, r: the store's BDZ
+    geometry, n_live: the vertices with a record (CmphKmerTable.n_live).
+    -> (found bool, fm int32): found = vertex < n_live & valid & fm's
+    function != ignore_function; fm = vfm[vertex] (the indexed record's
+    (v0 & 0xFFFF0000) | (v1 & 0xFFFF)) where vertex < n_live under valid,
+    else 0."""
+    _check_cmph(g, vfm, None, r, n_live)
+    if not cl.on_cuda(hi, lo, valid, g, vfm):
+        return probe_cmph_reference(hi, lo, valid, g, vfm, seed=seed, r=r,
+                                    n_live=n_live,
                                     ignore_function=ignore_function)
-    out = _launch_cmph(hi, lo, valid, g, rank, v0, v1, None, seed, r, m,
+    out = _launch_cmph(hi, lo, valid, g, vfm, None, seed, r, n_live,
                        ignore_function)
     probe_cmph.launches += 1
     return out
@@ -631,15 +661,18 @@ def probe_cmph(hi, lo, valid, g, rank, v0, v1, *, seed: int, r: int,
 probe_cmph.launches = 0
 
 
-def probe_cmph_aux(hi, lo, valid, g, rank, v0, v1, v2, *, seed: int, r: int,
-                   m: int):
-    """probe_cmph with the indexed record's three value words.  ->
-    (found bool, fm, r0, r1, r2 int32), found masked by valid only;
-    every word 0 where not found."""
-    if not cl.on_cuda(hi, lo, valid, g, rank, v0, v1, v2):
-        return probe_cmph_aux_reference(hi, lo, valid, g, rank, v0, v1, v2,
-                                        seed=seed, r=r, m=m)
-    out = _launch_cmph(hi, lo, valid, g, rank, v0, v1, v2, seed, r, m, -1)
+def probe_cmph_aux(hi, lo, valid, g, vfm, vrec, *, seed: int, r: int,
+                   n_live: int):
+    """probe_cmph with the indexed record's three value words, read from
+    the per-vertex records vrec (CmphKmerTable.aux_to_device; vfm is
+    taken as the caller holds it and not read).  -> (found bool, fm, r0,
+    r1, r2 int32), found masked by valid only; every word 0 where not
+    found."""
+    _check_cmph(g, vfm, vrec, r, n_live)
+    if not cl.on_cuda(hi, lo, valid, g, vfm, vrec):
+        return probe_cmph_aux_reference(hi, lo, valid, g, vfm, vrec,
+                                        seed=seed, r=r, n_live=n_live)
+    out = _launch_cmph(hi, lo, valid, g, vfm, vrec, seed, r, n_live, -1)
     probe_cmph_aux.launches += 1
     return out
 
@@ -672,7 +705,7 @@ def table_probe(table, with_aux: bool = False):
     if isinstance(table, CmphKmerTable):
         mph = table.mph
         return (probe_cmph_aux if with_aux else probe_cmph,
-                dict(seed=mph.seed, r=mph.r, m=mph.m))
+                dict(seed=mph.seed, r=mph.r, n_live=table.n_live))
     raise TypeError(f"no device probe for table type "
                     f"{type(table).__name__}: the port probes "
                     f"WideKmerTable, BucketKmerTable and CmphKmerTable")

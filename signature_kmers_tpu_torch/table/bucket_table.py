@@ -17,6 +17,10 @@ path, ref: call_functions.tcc:307-311).  The full 5-field StoredKmerData
 (ref: kmer_data.h:114-128) lives in a parallel aux array gathered only by
 the matrix-distance / debug paths (kernel: csrc/probe_bucket.cu).
 
+On the card (to_device) each row is padded to whole 32-byte sectors
+(khi*s, klo*s, fm*s, then s zero words) and the aux rows are slot-major,
+16 bytes per slot; the host rows and the files stay as they are.
+
 Insertion is vectorized two-choice placement with per-bucket eviction
 rounds (random-walk cuckoo); a salted rebuild handles the (rare)
 non-convergent layout.  Lookups are exact: keys are stored and compared,
@@ -30,6 +34,7 @@ import json
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..core.config import TableConfig
 from ..ops import hashing
@@ -268,14 +273,25 @@ class BucketKmerTable:
     # -- device ------------------------------------------------------------
 
     def to_device(self, device, with_aux: bool = False):
-        """Table words as int32 tensors (bit containers of the uint32
-        words) on ``device``: (packed,), or (packed, aux) with_aux."""
-        return _words_on(device, self.packed) + (
+        """The probe rows as int32 tensors (bit containers of the uint32
+        words) on ``device``, each row padded to whole 32-byte sectors:
+        (n_buckets, 4*slots) = [khi x s | klo x s | fm x s | 0 x s], 32
+        bytes at 2 slots (512 MiB at 2^24 buckets; the host rows are 24
+        bytes), 64 at 4.  -> (rows,), or (rows, aux) with_aux
+        (ops/probe.probe_bucket)."""
+        rows, = _words_on(device, self.packed)
+        return (_pad_last(rows, 4 * self.slots),) + (
             self.aux_to_device(device) if with_aux else ())
 
     def aux_to_device(self, device):
-        """(aux,) alone, for a caller that already holds the probe rows."""
-        return _words_on(device, self.aux)
+        """(aux,) alone, for a caller that already holds the probe rows:
+        slot-major, 16 bytes per slot, (n_buckets, 4*slots) = [v0, v1,
+        v2, 0] x slots, so that a found window's value words are one
+        16-byte load inside one sector."""
+        s = self.slots
+        aux, = _words_on(device, self.aux)
+        return (_pad_last(aux.view(-1, 3, s).transpose(1, 2), 4)
+                .view(-1, 4 * s),)
 
     # -- interop -----------------------------------------------------------
 
@@ -293,3 +309,10 @@ class BucketKmerTable:
         v2 = a[:, 2, :].reshape(-1)[occ]
         order = np.lexsort((lo, hi))
         return hi[order], lo[order], v0[order], v1[order], v2[order]
+
+
+def _pad_last(t, width: int):
+    """t zero-padded to ``width`` in its last dimension, contiguous."""
+    out = torch.zeros((*t.shape[:-1], width), dtype=t.dtype, device=t.device)
+    out[..., :t.shape[-1]] = t
+    return out

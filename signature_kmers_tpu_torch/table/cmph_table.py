@@ -13,8 +13,14 @@ behavior exactly.  For exact-membership semantics, import the store into
 a native layout instead (models/pipeline.load_data_dir).
 
 The device probe (ops/probe.probe_cmph, kernel csrc/probe_cmph.cu) runs
-the whole BDZ search per window: the Jenkins hash (3 uint32 lanes), three
-2-bit g lookups, the rank read and the value reads.
+the BDZ search per window: the Jenkins hash (3 uint32 lanes) and three
+2-bit g lookups select a vertex, and one word read by that vertex
+answers.  The rank is a cumsum over assigned vertices, so it never
+decreases: the vertices whose rank is below m (a record, not the miss)
+are exactly those below one boundary, ``n_live``.  to_device therefore
+resolves rank -> record once, when the store opens: a per-vertex word
+``vfm`` (the record's fm, 0 past n_live) for the call path and, for the
+aux probe, a per-vertex 16-byte record (v0, v1, v2, 0).
 """
 
 from __future__ import annotations
@@ -41,6 +47,13 @@ class CmphKmerTable:
                 f"value array has {values.shape[0]} records, mph m={mph.m}")
         self.values = values
         self._rank = mph.rank_array()
+        # the vertices with a record (rank < m) must be a prefix, which a
+        # rank that never decreases gives; the device layout relies on it
+        live = self._rank < mph.m
+        self.n_live = int(live.sum())
+        if not live[:self.n_live].all():
+            raise ValueError("BDZ rank decreases: the vertices with rank < m "
+                             "are not a prefix")
         # packed value words in the shared (v0, v1, v2) layout
         v = values
         self.v0 = (v["avg_from_end"].astype(np.uint32)
@@ -119,17 +132,33 @@ class CmphKmerTable:
     # -- device -----------------------------------------------------------
 
     def to_device(self, device, with_aux: bool = False):
-        """(g, rank, v0, v1[, v2]) on ``device``: g as uint8 bytes, the
-        per-vertex rank and the value words as int32 (bit containers of
-        the uint32 words); v2 (aux_to_device) only with_aux
-        (ops/probe.probe_cmph)."""
+        """(g, vfm[, vrec]) on ``device``: g as uint8 bytes; vfm, int32
+        (3r,), each vertex's answer for the call path, fm = (v0 &
+        0xFFFF0000) | (v1 & 0xFFFF) of record rank[vertex] below n_live
+        and 0 from it on (104 MB with g at r = 8.2M, against 264 MB for g,
+        rank, v0 and v1); vrec (aux_to_device) only with_aux
+        (ops/probe.probe_cmph).  Resolved on the device with gathers."""
         g = torch.from_numpy(np.ascontiguousarray(self.mph.g)).to(device)
-        return (g, *_words_on(device, self._rank, self.v0, self.v1)) + (
-            self.aux_to_device(device) if with_aux else ())
+        rec = self._records(device, self.v0, self.v1)
+        vfm = torch.zeros(self.mph.n, dtype=torch.int32, device=device)
+        vfm[:self.n_live] = (rec[:, 0] & -0x10000) | (rec[:, 1] & 0xFFFF)
+        return (g, vfm) + (self.aux_to_device(device) if with_aux else ())
 
     def aux_to_device(self, device):
-        """(v2,) alone, for a caller that already holds the rest."""
-        return _words_on(device, self.v2)
+        """(vrec,) alone, for a caller that already holds the rest: int32
+        (3r, 4), each vertex's record (v0, v1, v2, 0) below n_live and
+        zeros from it on, 16 bytes (393 MB at r = 8.2M)."""
+        vrec = torch.zeros((self.mph.n, 4), dtype=torch.int32, device=device)
+        vrec[:self.n_live, :3] = self._records(device, self.v0, self.v1,
+                                               self.v2)
+        return (vrec,)
+
+    def _records(self, device, *words):
+        """(n_live, len(words)) int32 on ``device``: the words of record
+        rank[v] for each vertex v below n_live, gathered there."""
+        rank, *cols = _words_on(device, self._rank[:self.n_live],
+                                *(w[:self.mph.m] for w in words))
+        return torch.stack([c.index_select(0, rank) for c in cols], dim=1)
 
     # -- conversion ----------------------------------------------------------
 

@@ -398,15 +398,18 @@ def _windows_on(dev, qhi, qlo, valid):
 @pytest.mark.parametrize("slots", [2, 4])
 def test_probe_bucket(dev, slots):
     # every stored key (keys in their second bucket, every slot), aliens,
-    # invalid windows; flat and (B, W)-shaped, with and without an
-    # ignored function, plain and aux
+    # invalid windows; flat (with a tail of 3 windows past the last
+    # group of 4) and (B, W)-shaped, with and without an ignored
+    # function, plain and aux, on the padded rows and slot-major aux
     table, q, stats = kernel_cases.bucket_cases(60_000, 11, slots)
     assert stats["second_bucket"] > 0
     assert all(stats[f"slot_{k}"] > 0 for k in range(slots))
     packed, aux = table.to_device(dev, with_aux=True)
+    assert packed.shape == aux.shape == (table.n_buckets, 4 * slots)
     n = q[0].shape[0] // 304 * 304
     fn = int(table.occupied()[2][0] >> 16)
-    for shape in ((q[0].shape[0],), (n // 304, 304)):
+    for shape in ((q[0].shape[0],), (q[0].shape[0] // 4 * 4 - 1,),
+                  (n // 304, 304)):
         win = [t.view(-1)[:math.prod(shape)].view(shape)
                for t in _windows_on(dev, *q)]
         for ignore in (-1, fn):
@@ -425,25 +428,38 @@ def test_probe_bucket(dev, slots):
                                                 salt=table.salt)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         assert 0 < int(want[0].sum()) < want[0].numel()
+    # a table off a 32-byte boundary (rows would straddle sectors), and
+    # windows off a 16-byte one, are refused
+    for off in (2, 4):
+        with pytest.raises(ValueError, match="aligned"):
+            probe.probe_bucket(*win, packed.view(-1)[
+                off:off + packed.numel() // 2].view(-1, 4 * slots),
+                salt=table.salt)
+    flat = [t.view(-1) for t in win]
     with pytest.raises(ValueError, match="aligned"):
-        probe.probe_bucket(*win, packed.view(-1)[2:2 + packed.numel() // 2]
-                           .view(-1, 3 * slots), salt=table.salt)
+        probe.probe_bucket(flat[0][1:], flat[1][1:], flat[2][1:], packed,
+                           salt=table.salt)
 
 
 def test_probe_cmph(dev):
     # a BDZ store over keys with lower-case codes, queried with every key
     # and aliens of all 64 codes; a store made by hand whose rank gives
-    # idx == m; invalid windows; plain and aux
+    # idx == m; invalid windows; a count of windows that leaves the last
+    # block part empty; plain and aux, on the per-vertex words and
+    # records
     for table, q in kernel_cases.cmph_cases(60_000, 13):
-        win = _windows_on(dev, *q)
+        n_all = q[0].shape[0]
+        win = [t[:n_all // 4 * 4 - 1] for t in _windows_on(dev, *q)]
         tabs = table.to_device(dev, with_aux=True)
-        geo = dict(seed=table.mph.seed, r=table.mph.r, m=table.mph.m)
+        assert tabs[1].shape == (3 * table.mph.r,)
+        assert tabs[2].shape == (3 * table.mph.r, 4)
+        geo = dict(seed=table.mph.seed, r=table.mph.r, n_live=table.n_live)
         for ignore in (-1, int(table.v0[0] >> 16)):
             before = probe.probe_cmph.launches
-            got = probe.probe_cmph(*win, *tabs[:4], ignore_function=ignore,
+            got = probe.probe_cmph(*win, *tabs[:2], ignore_function=ignore,
                                    **geo)
             assert probe.probe_cmph.launches == before + 1
-            want = probe.probe_cmph_reference(*win, *tabs[:4],
+            want = probe.probe_cmph_reference(*win, *tabs[:2],
                                               ignore_function=ignore, **geo)
             assert all(torch.equal(a, b) for a, b in zip(got, want))
         before = probe.probe_cmph_aux.launches

@@ -10,6 +10,7 @@ the other stores are written from its entries by the JAX package's own
 writers (host calls, no second JAX build)."""
 
 import contextlib
+import dataclasses
 import io
 import re
 import shutil
@@ -148,18 +149,31 @@ def _words_equal(got, want_found, want_words, valid):
 
 @pytest.fixture(scope="module")
 def bucket_case(stores):
-    jt = JaxBucket.load(stores["dirs"]["cuckoo"] / "kmer_data")
+    """The JAX cuckoo build's 2-slot table and a 4-slot table of the same
+    entries (the JAX package's host build), each with the JAX probe's
+    outputs on the same queries: {slots: (table, want)}, queries."""
+    from signature_kmers_tpu.core.config import TableConfig
+
     q = _queries(*stores["entries"][:2], seed=3)
-    want = {aux: [np.asarray(x) for x in jax_probe.probe_bucket(
-        jnp.asarray(jt.packed), jnp.asarray(q[0]), jnp.asarray(q[1]),
-        jt.salt, jnp.asarray(jt.aux) if aux else None)]
-        for aux in (False, True)}
-    return jt, q, want
+    tables = {2: JaxBucket.load(stores["dirs"]["cuckoo"] / "kmer_data"),
+              4: JaxBucket.build(*stores["entries"],
+                                 TableConfig(layout="cuckoo", slots=4))}
+    cases = {}
+    for slots, jt in tables.items():
+        assert jt.slots == slots
+        want = {}
+        for aux in (False, True):
+            out = jax_probe.probe_bucket(
+                jnp.asarray(jt.packed), jnp.asarray(q[0]), jnp.asarray(q[1]),
+                jt.salt, jnp.asarray(jt.aux) if aux else None)
+            want[aux] = [np.asarray(x) for x in out]
+        cases[slots] = jt, want
+    return cases, q
 
 
-@pytest.mark.parametrize("aux", [False, True])
-def test_probe_bucket_matches_jax(bucket_case, aux):
-    jt, (qhi, qlo, valid), want = bucket_case
+def _bucket_matches_jax(bucket_case, slots, aux):
+    cases, (qhi, qlo, valid) = bucket_case
+    jt, want = cases[slots]
     tt = bucket_table_from_jax_arrays(jt.packed, jt.aux, jt.salt,
                                       jt.n_items)
     win = (_t(qhi), _t(qlo), _t(valid))
@@ -170,6 +184,48 @@ def test_probe_bucket_matches_jax(bucket_case, aux):
         got = probe.probe_bucket(*win, *tabs, salt=tt.salt)
     _words_equal(got, want[aux][0], want[aux][1:], valid)
     assert 0 < int(got[0].sum()) < valid.sum()
+
+
+@pytest.mark.parametrize("aux", [False, True])
+def test_probe_bucket_matches_jax(bucket_case, aux):
+    _bucket_matches_jax(bucket_case, 2, aux)
+
+
+@pytest.mark.parametrize("aux", [False, True])
+def test_probe_bucket_4_slots_matches_jax(bucket_case, aux):
+    _bucket_matches_jax(bucket_case, 4, aux)
+
+
+@pytest.mark.parametrize("slots", [2, 4])
+def test_bucket_device_rows_are_whole_sectors(bucket_case, slots):
+    # the device layout: each probe row [khi x s | klo x s | fm x s | 0 x
+    # s] and each aux row slot-major [v0, v1, v2, 0] x s, 16*s bytes (32
+    # or 64: whole sectors), on a 32-byte boundary; the host rows as
+    # they were
+    jt = bucket_case[0][slots][0]
+    tt = bucket_table_from_jax_arrays(jt.packed, jt.aux, jt.salt,
+                                      jt.n_items)
+    packed, aux = tt.to_device("cpu", with_aux=True)
+    nb = tt.n_buckets
+    for t in (packed, aux):
+        assert t.dtype == torch.int32 and t.is_contiguous()
+        assert tuple(t.shape) == (nb, 4 * slots)
+        assert t.data_ptr() % 32 == 0
+    rows = packed.numpy().view(np.uint32)
+    np.testing.assert_array_equal(rows[:, :3 * slots], jt.packed)
+    assert not rows[:, 3 * slots:].any()
+    recs = aux.numpy().view(np.uint32).reshape(nb, slots, 4)
+    np.testing.assert_array_equal(
+        recs[..., :3], jt.aux.reshape(nb, 3, slots).transpose(0, 2, 1))
+    assert not recs[..., 3].any()
+    assert tt.packed.shape == (nb, 3 * slots)
+    # a table in another layout is refused, on either route
+    win = [torch.zeros(64, dtype=d) for d in (torch.int32, torch.int32,
+                                              torch.bool)]
+    with pytest.raises(ValueError, match="4\\*slots words"):
+        probe.probe_bucket(*win, _t(jt.packed), salt=tt.salt)
+    with pytest.raises(ValueError, match="aux rows"):
+        probe.probe_bucket_aux(*win, packed, _t(jt.aux), salt=tt.salt)
 
 
 # -- (b) the BDZ search -------------------------------------------------------
@@ -199,7 +255,7 @@ def test_probe_cmph_matches_jax(cmph_case, aux):
     tt = cmph_table_from_jax_arrays(mph.seed, mph.n, mph.m, mph.r, mph.g,
                                     mph.k, mph.b, mph.ranktable, jt.values)
     win = (_t(qhi), _t(qlo), _t(valid))
-    geo = dict(seed=mph.seed, r=mph.r, m=mph.m)
+    geo = dict(seed=mph.seed, r=mph.r, n_live=tt.n_live)
     tabs = tt.to_device("cpu", with_aux=aux)
     if aux:
         got = probe.probe_cmph_aux(*win, *tabs, **geo)
@@ -208,6 +264,57 @@ def test_probe_cmph_matches_jax(cmph_case, aux):
     _words_equal(got, want[aux][0], want[aux][1:], valid)
     # aliasing: nearly every valid window finds some record
     assert int(got[0].sum()) > 0.95 * valid.sum()
+
+
+@pytest.mark.parametrize("case", ["bdz", "hand-made"])
+def test_cmph_per_vertex_layout_matches_rank_route(case):
+    # vfm, n_live and the per-vertex records against the rank route of
+    # lookup_np (rank[vertex] < m, then the record at the rank): members
+    # with lower-case codes, aliens of all 64 codes, and the hand-made
+    # store whose rank gives idx == m
+    from signature_kmers_tpu_torch import testing
+
+    tt, (qhi, qlo, _) = testing.cmph_cases(3000, 21)[
+        ["bdz", "hand-made"].index(case)]
+    m, n = tt.mph.m, tt.mph.n
+    g, vfm, vrec = tt.to_device("cpu", with_aux=True)
+    assert tuple(vfm.shape) == (n,) and tuple(vrec.shape) == (n, 4)
+    rank = tt.mph.rank_array()
+    assert tt.n_live == int((rank < m).sum())
+    assert (rank[:tt.n_live] < m).all() and (rank[tt.n_live:] >= m).all()
+    found, v0, v1, v2 = tt.lookup_np(qhi, qlo)
+    vert = tt.vertices_np(qhi, qlo)
+    np.testing.assert_array_equal(vert < tt.n_live, found)
+    fm = (v0 & 0xFFFF0000) | (v1 & 0xFFFF)
+    np.testing.assert_array_equal(vfm.numpy().view(np.uint32)[vert], fm)
+    recs = vrec.numpy().view(np.uint32)[vert]
+    for k, w in enumerate((v0, v1, v2, np.zeros_like(v0))):
+        np.testing.assert_array_equal(recs[:, k], w)
+    assert found.any() and (~found).any() == (case == "hand-made")
+    # a wrong geometry is refused, on either route
+    win = [torch.zeros(64, dtype=d) for d in (torch.int32, torch.int32,
+                                              torch.bool)]
+    geo = dict(seed=tt.mph.seed, r=tt.mph.r)
+    with pytest.raises(ValueError, match="vfm: shape"):
+        probe.probe_cmph(*win, g, vfm[:-1], n_live=tt.n_live, **geo)
+    with pytest.raises(ValueError, match="n_live"):
+        probe.probe_cmph(*win, g, vfm, n_live=n + 1, **geo)
+    with pytest.raises(ValueError, match="vrec: shape"):
+        probe.probe_cmph_aux(*win, g, vfm, vrec[:, :3].contiguous(),
+                             n_live=tt.n_live, **geo)
+
+
+def test_cmph_rank_that_decreases_is_refused():
+    from signature_kmers_tpu_torch import testing
+    from signature_kmers_tpu_torch.table.cmph_table import CmphKmerTable
+
+    tt = testing.cmph_cases(100, 22)[1][0]
+    mph = dataclasses.replace(tt.mph)
+    rank = mph.rank_array()
+    rank[1] = tt.mph.m  # a vertex past the prefix, then records again
+    mph.rank_array = lambda: rank
+    with pytest.raises(ValueError, match="not a prefix"):
+        CmphKmerTable(mph, tt.values)
 
 
 def test_probe_cmph_kernel_lut_is_the_alphabet():
