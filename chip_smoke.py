@@ -92,8 +92,10 @@ Phases, in order; any failure exits non-zero:
    /matrix of 256 related sequences against MatrixDistance.compute,
    /fq_lookup of 256 reads back-translated from uniform300 rows in mixed
    frames against the host route over their six frames, /add of 1000 new
-   keys and a /query that calls them, /checkpoint and load_data_dir of
-   the dir (the old keys plus 1000), and /quit while four requests are
+   keys and a /query that calls them, /checkpoint with a /query sent
+   while the table saves (it must answer first, with call_batch's rows:
+   the save runs off the loop thread) and load_data_dir of the dir (the
+   old keys plus 1000), and /quit while four requests are
    held in call_batch (they must answer, and serve_async return only
    after).  Last the serve verb with --daemonize, --pid-file, --port 0,
    --listen-port-file and --kmer-family-distribution on the same dir
@@ -142,6 +144,28 @@ Phases, in order; any failure exits non-zero:
    (seed 3): kernel 7 against its plain version, held, the selection's
    time, and the kept ids of a sparse-id numbering against the plain
    version's.
+3g. the build's reference stores (run after 3d, on its corpus):
+   build-signatures through the CLI on the card with recall and
+   --nudb-file, --perfect-hash, --perfect-hash-data (absolute paths),
+   --otu-file (the 100 genomes in 25 OTUs) and --checkpoint; it fails
+   unless kernels 6-7 and 1-3 launched, if any plain version ran or a
+   recall mismatch line appears.  Both stores read back with the port's
+   readers (every NuDB record; fetch_nudb of 10,000 kept keys and 10,000
+   aliens through the key file's buckets; bdz_search of every key, a
+   permutation of [0, m) with the records at its slots), equal to the
+   build's kept set.  The build's wide dir, the NuDB store and the CMPH
+   pair with final.kmers beside it opened by load_data_dir, 16384 of the
+   corpus's sequences with 3% point mutations called on each (call_batch
+   8192, kernels 1-3, every row equal to the wide dir's), and the pair
+   without final.kmers opened with cmph_aliasing (kernel 9; 512 sampled
+   best calls against the host route).  table-tool info, verify (OK, 0
+   false hits), export-nudb and import of the export (the same entries
+   as the data dir's kmer_data.npz).  Then every artifact deleted but
+   build.ckpt.d and the build run again (without the two store writers,
+   whose files were checked above): it must parse no FASTA file and
+   write the same final.kmers and kmer_data.npz.  Prints each build's
+   seconds per phase (run_build's names, the two writers' included), the
+   files' sizes, peak device memory and each step's seconds.
 4. one JSON line of per-kernel numbers (launches from one run of each
    kernel's own path, named in launches_of), the card line, and the
    contract line {"ok": true, "device": {...}} last.
@@ -157,8 +181,10 @@ import contextlib
 import dataclasses
 import gc
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -508,12 +534,12 @@ def group_histogram(k1s) -> str:
 
 
 def build_phase(card: str, report: dict, differences, plain_of: dict,
-                call_wrappers: dict) -> dict:
+                call_wrappers: dict, work: Path, corpus) -> dict:
     """Phase 3d (module docstring): the port's build of the reference's
-    300K-sequence corpus on the card, with recall.  Adds the two build
-    kernels' entries to report; -> the launches of the build's run."""
+    300K-sequence corpus (corpus: its fasta and definitions dirs) on the
+    card, with recall, into work/kd.  Adds the two build kernels' entries
+    to report; -> the launches of the build's run."""
     import shutil
-    import tempfile
 
     import numpy as np
     import torch
@@ -526,14 +552,9 @@ def build_phase(card: str, report: dict, differences, plain_of: dict,
         "build_extract_windows": build_extract.build_extract_windows,
         "build_select_runs": build_select.build_select_runs}
     wrappers = dict(call_wrappers, **build_wrappers)
-    tmp = Path(tempfile.mkdtemp(prefix="skt_build_"))
+    fasta_dir, defs_dir = corpus
+    kd = work / "kd"
     try:
-        t0 = time.perf_counter()
-        fasta_dir, defs_dir = kernel_cases.build_corpus(
-            tmp / "corpus", BUILD_SEQS, n_lower=BUILD_LOWER)
-        print(f"build corpus: {BUILD_SEQS} sequences of 300 residues in 100 "
-              f"genomes ({BUILD_LOWER} in lower case), written in "
-              f"{time.perf_counter() - t0:.1f} s")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for w in wrappers.values():
@@ -544,8 +565,7 @@ def build_phase(card: str, report: dict, differences, plain_of: dict,
             t0 = time.perf_counter()
             res = pipeline.run_build(
                 definition_dirs=[defs_dir], fasta_dirs=[fasta_dir],
-                kmer_data_dir=tmp / "kd", final_kmers="final.kmers",
-                device="cuda")
+                kmer_data_dir=kd, final_kmers="final.kmers", device="cuda")
             torch.cuda.synchronize()
             build_s = time.perf_counter() - t0
         launched = {n: w.launches for n, w in wrappers.items()}
@@ -565,7 +585,6 @@ def build_phase(card: str, report: dict, differences, plain_of: dict,
             fail(f"the build path ran plain versions: {plain}")
 
         # the artifacts, read back by the repo's own means
-        kd = tmp / "kd"
         n_kept = len(res.kept)
         n_final = (kd / "final.kmers").read_bytes().count(b"\n")
         n_recall = sum(f.read_bytes().count(b"\n")
@@ -641,7 +660,7 @@ def build_phase(card: str, report: dict, differences, plain_of: dict,
         split = process_kmers_split(res.builder, codes, sids, fidx, plen,
                                     n_kept, card)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(kd, ignore_errors=True)
 
     # times on the build path's own inputs
     dev = ext_args[0].device
@@ -903,6 +922,361 @@ def process_kmers_split(builder, codes, sids, fidx, plen, n_kept: int,
                   f"{k} {v:.4f}" for k, v in parts.items())
               + f"; sum {sum(parts.values()):.4f} [{card}]")
     return parts
+
+
+STORE_QUERIES = 16384   # phase 3g: corpus sequences called on each store
+STORE_MUTATE = 0.03     # their point-mutation rate
+STORE_FETCH = 10_000    # fetch_nudb: sampled keys, and as many aliens
+
+
+@contextlib.contextmanager
+def keeping_build_results(pipeline):
+    """Keeps each BuildResult that pipeline.run_build returns while active:
+    the CLI prints counts only, the phase reads the timings and kept set."""
+    results = []
+    run_build = pipeline.run_build
+
+    def keep(*a, **kw):
+        res = run_build(*a, **kw)
+        results.append(res)
+        return res
+
+    pipeline.run_build = keep
+    try:
+        yield results
+    finally:
+        pipeline.run_build = run_build
+
+
+def stores_phase(card: str, call_wrappers: dict, work: Path, corpus,
+                 rng, device: str = "cuda") -> dict:
+    """Phase 3g (module docstring): the build's reference stores, written
+    by build-signatures on the card from phase 3d's corpus (fasta and
+    definitions dirs), read back, opened and called through; the build
+    resumed from its checkpoint; table-tool on its data dir.  Works under
+    work/stores.  device="cpu" rehearses it with the plain versions (no
+    launch is then required).  -> this phase's numbers."""
+    import hashlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from signature_kmers_tpu_torch.cli.main import main as cli
+    from signature_kmers_tpu_torch.core import alphabet
+    from signature_kmers_tpu_torch.core.config import (CallConfig,
+                                                       DeviceConfig)
+    from signature_kmers_tpu_torch.golden.call import find_best_call
+    from signature_kmers_tpu_torch.interop import cmph, nudb
+    from signature_kmers_tpu_torch.io import formats
+    from signature_kmers_tpu_torch.io.fasta import read_fasta_batch
+    from signature_kmers_tpu_torch.models import pipeline
+    from signature_kmers_tpu_torch.models.function_caller import \
+        FunctionCaller
+    from signature_kmers_tpu_torch.models.signature_builder import \
+        SignatureBuilder
+    from signature_kmers_tpu_torch.ops import (build_extract, build_select,
+                                               probe)
+    from signature_kmers_tpu_torch.table import CmphKmerTable, WideKmerTable
+
+    t_phase = time.perf_counter()
+    wrappers = dict(call_wrappers,
+                    build_extract_windows=build_extract.build_extract_windows,
+                    build_select_runs=build_select.build_select_runs,
+                    probe_cmph=probe.probe_cmph)
+    fasta_dir, defs_dir = corpus
+    root = work / "stores"
+    kd, nudb_dir, ph_dir = root / "kd", root / "nudb", root / "ph"
+    root.mkdir()
+    otus = root / "otus"
+    genomes = sorted(p.name for p in fasta_dir.iterdir())
+    otus.write_text("".join(f"otu{i // 4}\t{g}\n"
+                            for i, g in enumerate(genomes)))
+    argv = ["build-signatures", "-D", str(defs_dir), "-F", str(fasta_dir),
+            "--kmer-data-dir", str(kd), "--final-kmers", "final.kmers",
+            "--otu-file", str(otus), "--checkpoint", "--device", device]
+    store_flags = ["--nudb-file", str(nudb_dir / "kmer_data"),
+                   "--perfect-hash", str(ph_dir / "kmer_data.mph"),
+                   "--perfect-hash-data", str(ph_dir / "kmer_data.dat")]
+    on_card = device == "cuda"
+    out = {"card": card}
+    cfg = CallConfig()
+    dc = DeviceConfig(call_batch=8192)
+
+    def reset_launches():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def need(launched, plain, label, names):
+        if not on_card:
+            return
+        for name in names:
+            if launched[name] <= 0:
+                fail(f"phase 3g: {name} was not launched on the {label}")
+        if any(plain.values()):
+            fail(f"phase 3g: the {label} ran plain versions: {plain}")
+
+    def build(label: str, args):
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        stdout = io.StringIO()
+        with counting_plain_versions() as plain, \
+                keeping_build_results(pipeline) as results, \
+                contextlib.redirect_stdout(stdout):
+            t0 = time.perf_counter()
+            rc = cli(args)
+            sync()
+            sec = time.perf_counter() - t0
+        launched = {n: w.launches for n, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+        res = results[0]
+        n_recall = sum(f.read_bytes().count(b"\n")
+                       for f in (kd / "recall.report.d").iterdir())
+        print(f"stores {label}: build-signatures rc {rc} in {sec:.4f} s "
+              f"with recall, {n_recall} recall mismatch lines; peak device "
+              f"memory {peak:.3f} GiB; stdout "
+              f"{stdout.getvalue().splitlines()} [{card}]")
+        for name, t in res.timings.items():
+            print(f"stores {label} phase {name}: {t:.4f} s [{card}]")
+        print(f"stores {label} launches: {launched}; plain versions: "
+              f"{plain}")
+        if rc != 0 or n_recall:
+            fail(f"phase 3g: the {label} failed (rc {rc}, {n_recall} "
+                 f"recall mismatch lines)")
+        need(launched, plain, label,
+             ("build_extract_windows", "build_select_runs",
+              "pack_call_windows_rows16", "probe_wide",
+              "device_automaton_packed"))
+        out[label] = dict(seconds=sec, peak_gib=peak, phases=res.timings,
+                          launches=launched)
+        return res
+
+    # ---- the build with every store flag ------------------------------------
+    for d in (nudb_dir, ph_dir):
+        d.mkdir()
+    kept = build("first build", argv + store_flags).kept
+    n = len(kept)
+    keys = cmph.keys_from_packed(kept.hi, kept.lo)
+    vals = np.zeros(n, cmph.STORED_KMER_DTYPE)
+    for field in vals.dtype.names:
+        vals[field] = getattr(kept, field)
+    vals8 = vals.view(np.uint8).reshape(n, -1)
+    sizes = {str(p.relative_to(root)): p.stat().st_size
+             for p in sorted(root.rglob("*"))
+             if p.is_file() and p.parent.name not in ("recall.report.d",
+                                                      "build.ckpt.d")}
+    sizes["kd/build.ckpt.d"] = sum(
+        p.stat().st_size for p in (kd / "build.ckpt.d").iterdir())
+    print(f"stores: {n} kept k-mers; file sizes (bytes): {sizes}")
+    out["kept"] = n
+    out["file_bytes"] = sizes
+
+    # ---- both stores read back by the port's readers -------------------------
+    t0 = time.perf_counter()
+    dkeys, dvals = nudb.read_nudb_dat(nudb_dir / "kmer_data.dat")
+    read_s = time.perf_counter() - t0
+    if not (np.array_equal(dkeys, keys) and np.array_equal(dvals, vals8)):
+        fail("phase 3g: the NuDB data log differs from the kept set")
+    del dkeys, dvals
+    pick = np.sort(rng.choice(n, STORE_FETCH, replace=False))
+    # k-mers outside the kept set, by binary search of its sorted keys
+    packed = (kept.hi.astype(np.uint64) << np.uint64(24)) | kept.lo
+    cand = np.unique(rng.integers(0, 1 << 48, 2 * STORE_FETCH,
+                                  dtype=np.uint64))
+    at = np.minimum(np.searchsorted(packed, cand), n - 1)
+    cand = rng.permutation(cand[packed[at] != cand])[:STORE_FETCH]
+    aliens = cmph.keys_from_packed((cand >> np.uint64(24)).astype(np.uint32),
+                                   (cand & np.uint64(0xFFFFFF)).astype(
+                                       np.uint32))
+    t0 = time.perf_counter()
+    found, got = nudb.fetch_nudb(nudb_dir / "kmer_data",
+                                 np.concatenate([keys[pick], aliens]))
+    fetch_s = time.perf_counter() - t0
+    if (not found[:STORE_FETCH].all() or found[STORE_FETCH:].any()
+            or not np.array_equal(got[:STORE_FETCH], vals8[pick])):
+        fail("phase 3g: fetch_nudb through the key file's buckets differs")
+    mph = cmph.load_mph(ph_dir / "kmer_data.mph")
+    t0 = time.perf_counter()
+    idx = cmph.bdz_search(mph, keys)
+    search_s = time.perf_counter() - t0
+    recs = cmph.read_cmph_values(ph_dir / "kmer_data.dat")
+    if (mph.m != n or recs.shape[0] != n
+            or not np.array_equal(np.sort(idx), np.arange(n))
+            or not np.array_equal(recs[idx].view(np.uint8).reshape(n, -1),
+                                  vals8)):
+        fail("phase 3g: the CMPH pair does not map the kept set")
+    del idx, recs
+    print(f"stores read back: read_nudb_dat {read_s:.4f} s (every record); "
+          f"fetch_nudb of {STORE_FETCH} kept keys + {aliens.shape[0]} "
+          f"aliens through the key file {fetch_s:.4f} s; bdz_search of "
+          f"every key {search_s:.4f} s, a permutation of [0, {n}) with "
+          f"the records at its slots [{card}]")
+    out.update(read_nudb_dat_s=read_s, fetch_nudb_s=fetch_s,
+               bdz_search_s=search_s)
+
+    # ---- the stores opened by load_data_dir and called through ---------------
+    for d in (nudb_dir, ph_dir):
+        shutil.copy(kd / "function.index", d)
+    shutil.copy(kd / "final.kmers", ph_dir)
+    seqs = []
+    for f in sorted(fasta_dir.iterdir()):
+        b = read_fasta_batch(f)
+        seqs.extend(b.codes[b.offsets[i]:b.offsets[i + 1]]
+                    for i in range(len(b)))
+    aa = alphabet.encode_seq(alphabet.AA20)
+    queries = []
+    for i in rng.choice(len(seqs), STORE_QUERIES, replace=False):
+        s = seqs[i].copy()
+        hit = rng.random(s.shape[0]) < STORE_MUTATE
+        s[hit] = aa[rng.integers(0, 20, int(hit.sum()))]
+        queries.append(s)
+    del seqs
+    batch = as_batch(queries, "s")
+    rows = {}
+    for label, d in (("wide", kd), ("nudb", nudb_dir),
+                     ("cmph+final.kmers", ph_dir)):
+        t0 = time.perf_counter()
+        table, fi = pipeline.load_data_dir(d)
+        open_s = time.perf_counter() - t0
+        if type(table) is not WideKmerTable or table.n_items != n:
+            fail(f"phase 3g: load_data_dir did not import the {label} store")
+        caller = FunctionCaller(table, fi, cfg, dc, device=device)
+        reset_launches()
+        with counting_plain_versions() as plain:
+            t0 = time.perf_counter()
+            res = caller.call_batch(batch)
+            sync()
+            call_s = time.perf_counter() - t0
+        launched = {n_: w.launches for n_, w in wrappers.items()}
+        need(launched, plain, f"{label} store's call path",
+             ("pack_call_windows_rows16", "probe_wide",
+              "device_automaton_packed"))
+        rows[label] = "".join(formats.format_call_row(
+            r.seq_id, r.best.function, r.best.function_index, r.best.score)
+            for r in res)
+        n_called = sum(r.best.function_index != 0xFFFF for r in res)
+        print(f"stores {label}: load_data_dir {open_s:.4f} s; call_batch of "
+              f"{len(batch)} mutated corpus sequences {call_s:.4f} s (first "
+              f"call, the table's upload included), {n_called} called; "
+              f"launches {launched} [{card}]")
+        out[f"{label}_load_s"] = open_s
+        del caller, table, res
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    for label in ("nudb", "cmph+final.kmers"):
+        if rows[label] != rows["wide"]:
+            fail(f"phase 3g: calls on the {label} store differ from the "
+                 f"build's wide dir")
+    print("stores: every call row on the NuDB and CMPH imports equals the "
+          "wide dir's, byte for byte")
+
+    # the CMPH pair without final.kmers, with the reference's aliasing
+    (ph_dir / "final.kmers").unlink()
+    t0 = time.perf_counter()
+    ctab, fi = pipeline.load_data_dir(ph_dir, cmph_aliasing=True)
+    open_s = time.perf_counter() - t0
+    if type(ctab) is not CmphKmerTable:
+        fail("phase 3g: the CMPH pair did not open as a CmphKmerTable")
+    caller = FunctionCaller(ctab, fi, cfg, dc, device=device)
+    reset_launches()
+    with counting_plain_versions() as plain:
+        res = caller.call_batch(batch)
+    launched = {n_: w.launches for n_, w in wrappers.items()}
+    need(launched, plain, "aliasing CMPH store's call path",
+         ("probe_cmph", "pack_call_windows_rows16",
+          "device_automaton_packed"))
+    if on_card and launched["probe_wide"]:
+        fail("phase 3g: the aliasing CMPH store launched probe_wide")
+    bad = 0
+    for i in rng.choice(len(batch), N_SAMPLE, replace=False):
+        seq = batch.codes[batch.offsets[i]:batch.offsets[i + 1]]
+        want = find_best_call(caller.host_calls(seq),
+                              caller.function_at_index, cfg)
+        bad += dataclasses.astuple(res[i].best) != dataclasses.astuple(want)
+    print(f"stores cmph --cmph-aliasing: load_data_dir {open_s:.4f} s; "
+          f"launches {launched}; {N_SAMPLE} sampled best calls vs the host "
+          f"route: {bad} differ [{card}]")
+    if bad:
+        fail(f"phase 3g: {bad} sampled aliasing calls differ from the host")
+    out["cmph_aliasing_load_s"] = open_s
+    del caller, ctab, res
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- table-tool on the build's data dir -----------------------------------
+    def tool(*args):
+        so = io.StringIO()
+        with contextlib.redirect_stdout(so):
+            t0 = time.perf_counter()
+            rc = cli(["table-tool", *map(str, args)])
+            sec = time.perf_counter() - t0
+        print(f"table-tool {args[0]}: rc {rc} in {sec:.4f} s: "
+              f"{so.getvalue().strip()!r} [{card}]")
+        out[f"table_tool_{args[0]}_s"] = sec
+        return rc, so.getvalue()
+
+    tool("info", kd)
+    if tool("verify", kd) != (0, "stored-key round trip: OK\n"
+                                 "false hits on random probes: 0\n"):
+        fail("phase 3g: table-tool verify did not pass")
+    export, imported = root / "export", root / "imported"
+    if tool("export-nudb", kd, export / "kmer_data")[0] != 0:
+        fail("phase 3g: table-tool export-nudb failed")
+    shutil.copy(kd / "function.index", export)
+    if tool("import", export, imported)[0] != 0:
+        fail("phase 3g: table-tool import failed")
+    with np.load(kd / "kmer_data.npz") as a, \
+            np.load(imported / "kmer_data.npz") as b:
+        if sorted(a.files) != sorted(b.files) or not all(
+                np.array_equal(a[k], b[k]) for k in a.files):
+            fail("phase 3g: the imported NuDB export differs from the table")
+        first_npz = {k: a[k] for k in a.files}
+    shutil.rmtree(export)
+    shutil.rmtree(imported)
+
+    # ---- the build resumed from its checkpoint (the stores are checked
+    # above: the rerun leaves their writers out) -------------------------------
+    with open(kd / "final.kmers", "rb") as fh:
+        first_fk = hashlib.file_digest(fh, "sha256").hexdigest()
+    for p in kd.iterdir():
+        if p.name != "build.ckpt.d":
+            shutil.rmtree(p) if p.is_dir() else p.unlink()
+    shutil.rmtree(nudb_dir)
+    shutil.rmtree(ph_dir)
+    parsed = [0]
+    extract = SignatureBuilder._extract_file
+
+    def counted(self, *a):
+        parsed[0] += 1
+        return extract(self, *a)
+
+    SignatureBuilder._extract_file = counted
+    try:
+        build("resumed build", argv)
+    finally:
+        SignatureBuilder._extract_file = extract
+    with open(kd / "final.kmers", "rb") as fh:
+        same_fk = hashlib.file_digest(fh, "sha256").hexdigest() == first_fk
+    with np.load(kd / "kmer_data.npz") as z:
+        same_npz = sorted(z.files) == sorted(first_npz) and all(
+            np.array_equal(z[k], first_npz[k]) for k in z.files)
+    print(f"stores resumed build: {parsed[0]} FASTA files parsed; "
+          f"final.kmers {'equal' if same_fk else 'differs'}, kmer_data.npz "
+          f"{'equal' if same_npz else 'differs'}")
+    if parsed[0] or not (same_fk and same_npz):
+        fail("phase 3g: the resumed build did not resume, or differs")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"stores phase: {out['wall_s']:.1f} s wall [{card}]")
+    return out
 
 
 def layout_edge_checks(dev, differences, seed: int) -> dict:
@@ -1848,11 +2222,35 @@ def service_phase(card, table, function_index, batch, results, related,
         out["after_add"] = mem()
         out["add_s"] = add_s
 
-        # /checkpoint, then the dir holds the old keys and the added ones
+        # /checkpoint, then the dir holds the old keys and the added ones;
+        # a /query sent while the table saves answers first (the save runs
+        # off the loop thread), with call_batch's rows
+        ck = {}
+
+        def checkpoint():
+            t0 = time.perf_counter()
+            ck["text"] = _post(port, "/checkpoint", method="GET")
+            ck["done"] = time.perf_counter()
+            ck["s"] = ck["done"] - t0
+
+        ck_thread = threading.Thread(target=checkpoint)
+        ck_thread.start()
+        time.sleep(1.0)
         t0 = time.perf_counter()
-        if _post(port, "/checkpoint", method="GET") != "checkpointed\n":
+        during = _post(port, "/query", bodies[0])
+        q_done = time.perf_counter()
+        ck_thread.join()
+        if ck.get("text") != "checkpointed\n":
             fail("phase 3f: /checkpoint did not answer")
-        ck_s = time.perf_counter() - t0
+        print(f"service /query during /checkpoint: answered in "
+              f"{q_done - t0:.2f} s, {ck['done'] - q_done:.1f} s before the "
+              f"checkpoint; rows {'equal' if during == wants[0] else 'differ'}"
+              f" [{card}]")
+        if during != wants[0] or q_done >= ck["done"]:
+            fail("phase 3f: the /query sent during /checkpoint did not "
+                 "answer first with call_batch's rows")
+        ck_s = ck["s"]
+        out["query_during_checkpoint_s"] = q_done - t0
         t0 = time.perf_counter()
         n_back = pipeline.load_data_dir(d)[0].n_items
         print(f"service /checkpoint: {ck_s:.1f} s; load_data_dir "
@@ -2838,10 +3236,27 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 3d: the build at the reference's scale ---------------------
-    t_phase = time.perf_counter()
-    build_launches = build_phase(card, report, differences, plain_of,
-                                 all_wrappers)
-    print(f"build phase: {time.perf_counter() - t_phase:.1f} s wall [{card}]")
+    work = Path(tempfile.mkdtemp(prefix="skt_build_"))
+    try:
+        t0 = time.perf_counter()
+        corpus = kernel_cases.build_corpus(work / "corpus", BUILD_SEQS,
+                                           n_lower=BUILD_LOWER)
+        print(f"build corpus: {BUILD_SEQS} sequences of 300 residues in 100 "
+              f"genomes ({BUILD_LOWER} in lower case), written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        t_phase = time.perf_counter()
+        build_launches = build_phase(card, report, differences, plain_of,
+                                     all_wrappers, work, corpus)
+        print(f"build phase: {time.perf_counter() - t_phase:.1f} s wall "
+              f"[{card}]")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- phase 3g: the build's reference stores -----------------------
+        stores = stores_phase(card, all_wrappers, work, corpus, rng)
+        print(json.dumps({"stores": stores}))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     # ---- phase 4: report ---------------------------------------------------
     sources = {

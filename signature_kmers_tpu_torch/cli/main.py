@@ -8,10 +8,14 @@
   matrix-distance         ~ kmers-matrix-distance  (ref: kmers-matrix-distance.cc:60-68)
   matrix-distance-folder / -merge                  (ref: *-folder.cc, *-merge.cc)
   serve                   ~ kmers-server           (ref: kmers-server.cc:44-58)
+  table-tool              store maintenance (info, dump, build, verify,
+                          relayout, import, export-cmph, export-nudb)
+  setup-build             ~ kmers-setup-build.pl
 
 Flags and output bytes are the JAX package's (``skt``) for the same verbs;
 each verb runs as one process on one device.  ``--device cuda`` (the
-default) runs the kernels, ``--device cpu`` their plain PyTorch versions.
+default) runs the kernels, ``--device cpu`` their plain PyTorch versions;
+table-tool and setup-build are host code and take no ``--device``.
 """
 
 from __future__ import annotations
@@ -56,8 +60,25 @@ def _add_build(sub):
     p.add_argument("--final-kmers")
     p.add_argument("--min-reps-required", type=int, default=3)
     p.add_argument("--n-threads", type=int, default=1)  # accepted for parity
+    p.add_argument("--nudb-file",
+                   help="also write a real NuDB .dat/.key store at this "
+                        "base path (ref: kmers-build-signatures.cc:351-355)")
+    p.add_argument("--perfect-hash",
+                   help="also write a real CMPH BDZ .mph file here "
+                        "(ref: kmers-build-signatures.cc:253-264)")
+    p.add_argument("--perfect-hash-data",
+                   help="flat StoredKmerData array for --perfect-hash "
+                        "(default: <perfect-hash>.data)")
+    p.add_argument("--otu-file",
+                   help="OTU membership file (otu-id\\tgenome lines, e.g. "
+                        "the `otus` artifact of setup-build --otu-reps); "
+                        "populates otu.index instead of the reference's "
+                        "empty stub (kmers-build-signatures.cc:186-188)")
     p.add_argument("--kept-log")
     p.add_argument("--no-recall", action="store_true")
+    p.add_argument("--checkpoint", action="store_true",
+                   help="persist per-file extraction shards for resumable "
+                        "builds")
     p.add_argument("--host-only", action="store_true",
                    help="select on the host with numpy and recall on the "
                         "CPU: no device (debug)")
@@ -90,8 +111,13 @@ def cmd_build(args):
         ignored_functions_file=args.ignored_functions_file,
         kmer_data_dir=args.kmer_data_dir,
         final_kmers=args.final_kmers,
+        nudb_file=args.nudb_file,
+        perfect_hash=args.perfect_hash,
+        perfect_hash_data=args.perfect_hash_data,
+        otu_file=args.otu_file,
         recall=not args.no_recall,
         kept_log=args.kept_log,
+        checkpoint=args.checkpoint,
         config=cfg,
         use_device=not args.host_only,
         device=args.device,
@@ -431,6 +457,20 @@ def main(argv=None):
     _add_matrix_folder(sub)
     _add_matrix_merge(sub)
     _add_serve(sub)
+
+    from . import table_tool
+    table_tool.add_subparsers(sub)
+
+    p_setup = sub.add_parser("setup-build",
+                             help="prepare a build data directory")
+    p_setup.add_argument("setup_args", nargs=argparse.REMAINDER)
+
+    def _setup(args):
+        from . import setup_build
+        return setup_build.main(args.setup_args)
+
+    p_setup.set_defaults(func=_setup)
+
     args = parser.parse_args(argv)
     _apply_n_threads(args)
     return args.func(args)

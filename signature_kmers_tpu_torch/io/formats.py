@@ -9,6 +9,9 @@
   (ref: kmers-call-functions.cc:176-179).
 - distance TSV: seq1 \t seq2 \t count [\t score]
   (ref: kmers-matrix-distance.cc:199-211, matrix_distance.h:152-168).
+- otu.index: idx \t otu-id \t representative genome, from an OTU
+  membership file of otu-id \t genome lines (write_otu_index,
+  read_otu_sets).
 
 Floats are rendered with C++ default ostream precision (6 significant
 digits) via :func:`cxx_num`.
@@ -92,7 +95,17 @@ def write_final_kmers(path, hi: np.ndarray, lo: np.ndarray,
 
 
 def read_final_kmers(path):
-    """Parse final.kmers -> (hi, lo, avg_from_end, function_index) arrays."""
+    """Parse final.kmers -> (hi, lo, avg_from_end, function_index) arrays.
+
+    A file in its writer's own layout parses natively
+    (host.parse_final_kmers); any other, or any file without the native
+    library, takes the line-by-line reader."""
+    from ..runtime import host
+
+    parsed = host.parse_final_kmers(np.fromfile(path, dtype=np.uint8),
+                                    alphabet.BYTE_TO_CODE)
+    if parsed is not None:
+        return parsed
     his, los, avgs, fns = [], [], [], []
     with open(path, "r", encoding="latin-1") as fh:
         for line in fh:
@@ -106,6 +119,38 @@ def read_final_kmers(path):
             fns.append(int(parts[2]))
     return (np.asarray(his, dtype=np.uint32), np.asarray(los, dtype=np.uint32),
             np.asarray(avgs, dtype=np.uint16), np.asarray(fns, dtype=np.uint16))
+
+
+def write_otu_index(path, otus: Iterable[tuple[str, list[str]]]):
+    """otu.index: ``idx \\t otu-id \\t representative-genome``.
+
+    The reference always writes this file empty (its KmerOtuStats consumer
+    is compiled out: kmers-build-signatures.cc:186-188, call_functions.h:
+    95-120 under ``#if 0``), so no reference format exists; this catalog
+    mirrors function.index (dense index + names).  ``otus`` is an ordered
+    (otu_id, [member genomes...]) sequence whose first member is the
+    representative.  Written only when OTU metadata is supplied
+    (--otu-file); the empty stub stays the default.
+    """
+    with open(path, "w", encoding="latin-1") as fh:
+        for idx, (otu_id, genomes) in enumerate(otus):
+            rep = genomes[0] if genomes else ""
+            fh.write(f"{idx}\t{otu_id}\t{rep}\n")
+
+
+def read_otu_sets(path) -> list[tuple[str, list[str]]]:
+    """Parse an OTU membership file of ``otu-id \\t genome`` lines (the
+    --otu-reps input of setup-build, ref: kmers-setup-build.pl:35-51, and
+    the ``otus`` file it writes) into ordered (otu_id, [genomes...])
+    groups, first appearance first."""
+    groups: dict[str, list[str]] = {}
+    if path and os.path.isfile(path):
+        with open(path, encoding="latin-1") as fh:
+            for line in fh:
+                parts = line.rstrip("\n").split("\t")
+                if len(parts) >= 2 and parts[0]:
+                    groups.setdefault(parts[0], []).append(parts[1])
+    return list(groups.items())
 
 
 def format_call_row(seq_id: str, function: str, function_index: int, score: float) -> str:

@@ -1,11 +1,13 @@
 """Build a signature data dir, and open one for calling.
 
 run_build mirrors the kmers-build-signatures main flow (ref:
-kmers-build-signatures.cc:126-372): it writes function.index, stub
-otu.index / genomes, distinct_functions, final.kmers, the signature table
-(<data-dir>/kmer_data.{npz,json}, in the configured layout) and the
-recall self-check reports under recall.report.d/, which re-call every
-training protein with the port's FunctionCaller on the build's device.
+kmers-build-signatures.cc:126-372): it writes function.index, otu.index
+(an empty stub unless an OTU file is given), genomes, distinct_functions,
+final.kmers, the signature table (<data-dir>/kmer_data.{npz,json}, in the
+configured layout), on request the reference's stores (a NuDB .dat/.key
+pair, a CMPH .mph with its flat StoredKmerData array) and the recall
+self-check reports under recall.report.d/, which re-call every training
+protein with the port's FunctionCaller on the build's device.
 load_data_dir opens every store the JAX package's load_data_dir opens.
 """
 
@@ -83,10 +85,21 @@ def run_build(
     config: Config = Config(),
     use_device: bool = True,
     device="cuda",
+    checkpoint: bool = False,
+    nudb_file=None,
+    perfect_hash=None,
+    perfect_hash_data=None,
+    otu_file=None,
 ) -> BuildResult:
     """Build on ``device`` ("cuda" runs the kernels and raises without
     CUDA, "cpu" their plain versions); use_device=False (``--host-only``)
-    selects on the host with numpy and recalls on the CPU."""
+    selects on the host with numpy and recalls on the CPU.
+
+    checkpoint keeps each file's extraction in <kmer_data_dir>/build.ckpt.d
+    (a rerun resumes from it); nudb_file, perfect_hash (and
+    perfect_hash_data, default <perfect_hash>.data) name the reference
+    stores to write, relative paths under kmer_data_dir; otu_file fills
+    otu.index."""
     timings: dict[str, float] = {}
     verbose = bool(os.environ.get("SKT_BUILD_TIMING"))
 
@@ -129,12 +142,19 @@ def run_build(
         formats.write_function_index(kmer_data_dir / "function.index",
                                      builder.fm.function_index_rows())
         # stub artifacts for pipeline compatibility
-        # (ref: kmers-build-signatures.cc:184-191)
-        (kmer_data_dir / "otu.index").write_text("")
+        # (ref: kmers-build-signatures.cc:184-191); otu.index is a catalog
+        # when OTU membership is given (setup-build --otu-reps writes it)
+        otus = formats.read_otu_sets(otu_file) if otu_file else []
+        if otus:
+            formats.write_otu_index(kmer_data_dir / "otu.index", otus)
+        else:
+            (kmer_data_dir / "otu.index").write_text("")
         (kmer_data_dir / "genomes").write_text("empty genomes\n")
 
+    ckpt_dir = (kmer_data_dir / "build.ckpt.d"
+                if checkpoint and kmer_data_dir else None)
     with _phase("extract_kmers"):
-        builder.extract_kmers(deleted)
+        builder.extract_kmers(deleted, checkpoint_dir=ckpt_dir)
     with _phase("process_kmers(select+fetch)"):
         kept = builder.process_kmers()
 
@@ -185,6 +205,22 @@ def run_build(
                 _save()
         if fk_thread is not None:
             fk_thread.join()  # re-raises a failed final.kmers write
+        if nudb_file:
+            with _phase("nudb write"):
+                _write_nudb(kept, _under(kmer_data_dir, nudb_file))
+        if perfect_hash:
+            # CMPH BDZ .mph + flat StoredKmerData array
+            # (ref: kmers-build-signatures.cc:253-264, perfect_hash.h:11-69)
+            from ..interop import cmph as cmph_io
+
+            mph_path = _under(kmer_data_dir, perfect_hash)
+            dat_path = (_under(kmer_data_dir, perfect_hash_data)
+                        if perfect_hash_data
+                        else Path(str(mph_path) + ".data"))
+            with _phase("perfect-hash write"):
+                cmph_io.write_cmph_files(
+                    mph_path, dat_path, kept.hi, kept.lo, kept.avg_from_end,
+                    kept.function_index, kept.mean, kept.median, kept.var)
         if recall and kmer_data_dir:
             with _phase("recall"):
                 _run_recall(builder, table, function_index, kmer_data_dir,
@@ -202,6 +238,27 @@ def run_build(
 
     return BuildResult(builder, kept, table, function_index, kmer_data_dir,
                        timings)
+
+
+def _under(kmer_data_dir, path) -> Path:
+    """A relative artifact path resolves against the data dir."""
+    path = Path(path)
+    if not path.is_absolute() and kmer_data_dir:
+        path = kmer_data_dir / path
+    return path
+
+
+def _write_nudb(kept: KeptKmerArrays, base: Path) -> None:
+    """The kept set as a NuDB .dat/.key pair that the reference's binaries
+    fetch from (ref: kmers-build-signatures.cc:351-355,
+    nudb_kmer_db.h:55-63): 8-byte keys, 10-byte StoredKmerData values."""
+    from ..interop import cmph as cmph_io, nudb as nudb_io
+
+    vals = np.zeros(len(kept), dtype=cmph_io.STORED_KMER_DTYPE)
+    for field in vals.dtype.names:
+        vals[field] = getattr(kept, field)
+    nudb_io.write_nudb(base, cmph_io.keys_from_packed(kept.hi, kept.lo),
+                       vals.view(np.uint8).reshape(len(kept), -1))
 
 
 def _run_recall(builder: SignatureBuilder, table,

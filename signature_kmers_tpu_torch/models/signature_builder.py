@@ -397,12 +397,52 @@ class SignatureBuilder:
 
     # -- extraction --------------------------------------------------------
 
-    def extract_kmers(self, deleted_fids: set[str]):
+    def extract_kmers(self, deleted_fids: set[str], checkpoint_dir=None):
         """Collect each file's kept sequences (ref: signature_build.tcc:
         48-181).  Sequence ids are file_number * max_seqs_per_file + n;
-        the windows are extracted later, on the device."""
+        the windows are extracted later, on the device.
+
+        With checkpoint_dir, each file's arrays (codes, sids, fidxs, plens)
+        and its seqs_with_func counts (stat_func, stat_count) go to
+        ``extract_<file>.npz`` there, and a file whose shard exists is
+        read back instead of parsed: a killed build resumes at the first
+        file not yet extracted."""
+        ckpt = Path(checkpoint_dir) if checkpoint_dir else None
+        if ckpt:
+            ckpt.mkdir(parents=True, exist_ok=True)
         for file_number, path in enumerate(self.all_fasta_files):
+            if not ckpt:
+                self._extract_file(file_number, path, deleted_fids)
+                continue
+            shard = ckpt / f"extract_{file_number:06d}.npz"
+            if shard.is_file():
+                self._resume_file(shard)
+                continue
+            before = len(self._seq_chunks)
+            counts_before = dict(self.stats.seqs_with_func)
             self._extract_file(file_number, path, deleted_fids)
+            if len(self._seq_chunks) > before:
+                codes, sids, fidxs, plens = self._seq_chunks[before]
+            else:
+                codes = np.zeros(0, np.uint8)
+                sids = fidxs = plens = np.zeros(0, np.int32)
+            delta = {fi: cnt - counts_before.get(fi, 0)
+                     for fi, cnt in self.stats.seqs_with_func.items()
+                     if cnt != counts_before.get(fi, 0)}
+            np.savez(shard, codes=codes, sids=sids, fidxs=fidxs, plens=plens,
+                     stat_func=np.asarray(list(delta), np.int32),
+                     stat_count=np.asarray(list(delta.values()), np.int32))
+
+    def _resume_file(self, shard: Path):
+        """One file's extraction, read back from its checkpoint shard."""
+        with np.load(shard) as z:
+            if z["plens"].shape[0]:
+                self._seq_chunks.append(
+                    tuple(z[k] for k in ("codes", "sids", "fidxs", "plens")))
+            counts = zip(z["stat_func"].tolist(), z["stat_count"].tolist())
+        for fi, cnt in counts:
+            self.stats.seqs_with_func[fi] = \
+                self.stats.seqs_with_func.get(fi, 0) + cnt
 
     def _extract_file(self, file_number, path, deleted_fids):
         """Collect the file's kept sequences as one raw chunk (flat codes

@@ -1207,6 +1207,49 @@ long skt_write_final_kmers(const uint32_t *hi, const uint32_t *lo,
     return fclose(f) ? -1 : 0;
 }
 
+// Parses final.kmers text in its writer's own layout: each line an
+// 8-byte k-mer, a tab, 1-5 digits, a tab, 1-5 digits, a tab, a newline
+// (values up to 65535).  code[256] maps bytes to 6-bit residue codes.
+// Returns the rows parsed into hi/lo/avg/fn, or -1 at the first line in
+// any other layout, or past cap rows (the caller then reads the file
+// line by line).
+long skt_parse_final_kmers(const unsigned char *buf, long n,
+                           const unsigned char *code, long cap,
+                           uint32_t *hi, uint32_t *lo, uint16_t *avg,
+                           uint16_t *fn) {
+    long row = 0, i = 0;
+    while (i < n) {
+        if (row >= cap || n - i < 9) return -1;
+        uint32_t w[2] = {0, 0};
+        for (int j = 0; j < 8; j++) {
+            unsigned char c = buf[i + j];
+            if (c == '\t' || c == '\n' || c == '\r') return -1;
+            w[j >> 2] = (w[j >> 2] << 6) | code[c];
+        }
+        i += 8;
+        if (buf[i++] != '\t') return -1;
+        uint32_t f[2];
+        for (int k = 0; k < 2; k++) {
+            uint32_t v = 0;
+            int digits = 0;
+            while (i < n && buf[i] >= '0' && buf[i] <= '9') {
+                if (++digits > 5) return -1;
+                v = v * 10 + (uint32_t)(buf[i++] - '0');
+            }
+            if (!digits || v > 0xFFFF || i >= n || buf[i++] != '\t')
+                return -1;
+            f[k] = v;
+        }
+        if (i >= n || buf[i++] != '\n') return -1;
+        hi[row] = w[0];
+        lo[row] = w[1];
+        avg[row] = (uint16_t)f[0];
+        fn[row] = (uint16_t)f[1];
+        row++;
+    }
+    return row;
+}
+
 void skt_pack_u6_rows(const unsigned char *codes, const int64_t *offsets,
                       const int32_t *lens, const int64_t *row_start,
                       long B, long R, uint32_t *packed) {

@@ -76,6 +76,9 @@ def _load():
     lib.skt_write_final_kmers.argtypes = [
         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_long, ctypes.c_char_p,
         ctypes.c_char_p]
+    lib.skt_parse_final_kmers.restype = _c_long
+    lib.skt_parse_final_kmers.argtypes = [
+        _c_ptr, _c_long, _c_ptr, _c_long] + [_c_ptr] * 4
     _LIB = lib
     return _LIB
 
@@ -213,6 +216,28 @@ def write_final_kmers(path, hi, lo, avg, fn, decode_bytes: bytes) -> bool:
         _ptr(hi), _ptr(lo), _ptr(avg), _ptr(fn), hi.shape[0],
         decode_bytes, str(path).encode())
     return rc == 0
+
+
+def parse_final_kmers(data: np.ndarray, byte_to_code: np.ndarray):
+    """final.kmers bytes in its writer's layout -> (hi, lo, avg_from_end,
+    function_index); None when the native library is unavailable or the
+    text has another layout (io/formats.read_final_kmers then reads it
+    line by line)."""
+    lib = _load()
+    if lib is None:
+        return None
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    code = np.ascontiguousarray(byte_to_code, dtype=np.uint8)
+    cap = int(np.count_nonzero(data == 10))
+    hi = np.empty(cap, np.uint32)
+    lo = np.empty(cap, np.uint32)
+    avg = np.empty(cap, np.uint16)
+    fn = np.empty(cap, np.uint16)
+    n = lib.skt_parse_final_kmers(_ptr(data), data.shape[0], _ptr(code), cap,
+                                  _ptr(hi), _ptr(lo), _ptr(avg), _ptr(fn))
+    if n != cap:
+        return None
+    return hi, lo, avg, fn
 
 
 def build_cuckoo(hi, lo, v0, v1, v2, n_buckets: int, salt: int,

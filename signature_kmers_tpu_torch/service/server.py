@@ -570,8 +570,11 @@ async def _handle(service: AnnotationService, stop_event: asyncio.Event,
         elif method == "GET" and path == "/dump_mapping":
             text = service.dump_mapping_text()
         elif method == "GET" and path == "/checkpoint":
+            # off the loop thread, so every other route answers during
+            # the save; the lock keeps /add from swapping the table
             async with service._lock:
-                text = service.checkpoint_text()
+                text = await loop.run_in_executor(
+                    None, service.checkpoint_text)
         elif method == "POST" and path.startswith("/mapping/"):
             parts = path.split("/")
             if len(parts) == 4 and parts[3] in ("add", "lookup", "matrix"):

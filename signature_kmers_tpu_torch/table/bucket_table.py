@@ -38,7 +38,7 @@ import torch
 
 from ..core.config import TableConfig
 from ..ops import hashing
-from .wide_table import _words_on
+from .wide_table import _words_on, key_order
 
 EMPTY = np.uint32(0xFFFFFFFF)
 
@@ -307,7 +307,7 @@ class BucketKmerTable:
         v0 = a[:, 0, :].reshape(-1)[occ]
         v1 = a[:, 1, :].reshape(-1)[occ]
         v2 = a[:, 2, :].reshape(-1)[occ]
-        order = np.lexsort((lo, hi))
+        order = key_order(hi, lo)
         return hi[order], lo[order], v0[order], v1[order], v2[order]
 
 

@@ -5,7 +5,7 @@ The JAX package's first layout was a linear-probing table (five uint32
 words per slot: key_hi, key_lo, v0, v1, v2; format "skt-v1").  A data dir
 that holds one is converted to the cuckoo layout on load
 (models/pipeline.load_data_dir), as the JAX package does, so this module
-only reads it.
+only reads and probes it on the host (table-tool's info, dump and verify).
 """
 
 from __future__ import annotations
@@ -15,6 +15,9 @@ import json
 from pathlib import Path
 
 import numpy as np
+
+from ..ops import hashing
+from .wide_table import key_order
 
 EMPTY = np.uint32(0xFFFFFFFF)  # empty-slot key word (keys use 24 bits)
 
@@ -42,6 +45,14 @@ class KmerTable:
     n_items: int
     max_probes: int
 
+    @property
+    def size(self) -> int:
+        return int(self.key_hi.shape[0])
+
+    @property
+    def mask(self) -> int:
+        return self.size - 1
+
     @staticmethod
     def load(path) -> "KmerTable":
         path = Path(path)
@@ -64,6 +75,33 @@ class KmerTable:
         occ = self.key_hi != EMPTY
         hi = self.key_hi[occ]
         lo = self.key_lo[occ]
-        order = np.lexsort((lo, hi))
+        order = key_order(hi, lo)
         return (hi[order], lo[order], self.v0[occ][order],
                 self.v1[occ][order], self.v2[occ][order])
+
+    def lookup_np(self, qhi, qlo):
+        """Host probe, linear from the key's hashed slot.  Returns
+        (found, v0, v1, v2)."""
+        qhi = np.asarray(qhi, dtype=np.uint32)
+        qlo = np.asarray(qlo, dtype=np.uint32)
+        mask = np.uint32(self.mask)
+        cur = hashing.hash_kmer(qhi, qlo) & mask
+        found = np.zeros(qhi.shape, dtype=bool)
+        done = np.zeros(qhi.shape, dtype=bool)
+        r0 = np.zeros(qhi.shape, dtype=np.uint32)
+        r1 = np.zeros(qhi.shape, dtype=np.uint32)
+        r2 = np.zeros(qhi.shape, dtype=np.uint32)
+        for _ in range(self.max_probes):
+            khi = self.key_hi[cur]
+            klo = self.key_lo[cur]
+            hit = (khi == qhi) & (klo == qlo) & ~done
+            empty = (khi == EMPTY) & ~done
+            r0 = np.where(hit, self.v0[cur], r0)
+            r1 = np.where(hit, self.v1[cur], r1)
+            r2 = np.where(hit, self.v2[cur], r2)
+            found |= hit
+            done |= hit | empty
+            if done.all():
+                break
+            cur = (cur + np.uint32(1)) & mask
+        return found, r0, r1, r2

@@ -47,6 +47,13 @@ EMPTY = np.uint32(0xFFFFFFFF)  # empty-slot tag sentinel
 _OV_BUDGET_BYTES = 32 << 20
 
 
+def key_order(hi, lo) -> np.ndarray:
+    """The order that sorts entries by key: np.lexsort((lo, hi)), as one
+    stable sort of the 48-bit packed keys on torch's threaded CPU sort."""
+    key = (np.asarray(hi, np.int64) << 24) | np.asarray(lo, np.int64)
+    return torch.sort(torch.from_numpy(key), stable=True)[1].numpy()
+
+
 @dataclasses.dataclass(frozen=True)
 class WideTableConfig:
     """Parameters of the wide layout (see module docstring)."""
@@ -460,7 +467,7 @@ class WideKmerTable:
             v0 = np.concatenate([v0, o0])
             v1 = np.concatenate([v1, o1])
             v2 = np.concatenate([v2, o2])
-        order = np.lexsort((lo, hi))
+        order = key_order(hi, lo)
         return hi[order], lo[order], v0[order], v1[order], v2[order]
 
 

@@ -1,14 +1,16 @@
 """The port's build-signatures (device="cpu": the kernels' plain versions)
 against the JAX package's, with exact equality: every artifact byte for
-byte (the kmer_data.npz arrays array by array), BuildStats, the kept
-signatures, and the two device passes (window extraction, selection) on
-edge inputs; plus the port's call-path verbs on edge queries against a
-data dir the JAX package built."""
+byte (the kmer_data.npz arrays and the checkpoint shards array by array),
+the reference stores that --nudb-file and --perfect-hash write, BuildStats,
+the kept signatures, a build resumed from its checkpoint, and the two
+device passes (window extraction, selection) on edge inputs.  The
+call-path verbs on edge queries are in tests/test_torch_build_edges.py."""
 
 import contextlib
 import dataclasses
 import io
-import random
+import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +28,6 @@ from signature_kmers_tpu_torch.cli.main import main as torch_cli
 from signature_kmers_tpu_torch.models import pipeline as torch_pipeline
 from signature_kmers_tpu_torch.ops import build_extract, build_select
 from signature_kmers_tpu_torch.table.kmer_table import pack_values
-from tests.fixtures import gen_corpus
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -38,12 +39,19 @@ def _one_torch_thread():
     yield
     torch.set_num_threads(n)
 
-FLAG_SETS = {"default": [], "host-only": ["--host-only"],
+# the default flag set also writes the reference stores (to paths relative
+# to the data dir), the OTU catalog ("{otus}" is the OTU membership file the
+# builds fixture writes) and the checkpoint shards
+STORE_FLAGS = ["--nudb-file", "store", "--perfect-hash", "store.mph",
+               "--perfect-hash-data", "store.data", "--otu-file", "{otus}",
+               "--checkpoint"]
+FLAG_SETS = {"default": STORE_FLAGS, "host-only": ["--host-only"],
              "p2-stats": ["--p2-stats"],
              "wide-compact": ["--table-layout", "wide-compact"]}
 TEXT_ARTIFACTS = ("function.index", "final.kmers", "distinct_functions",
                   "otu.index", "genomes", "kmer_data.json",
                   "recall.report.d")
+STORE_FILES = ("store.dat", "store.key", "store.mph", "store.data")
 
 
 @contextlib.contextmanager
@@ -63,11 +71,30 @@ def _keeping_results(module, results):
         module.run_build = run_build
 
 
+@contextlib.contextmanager
+def fixed_urandom(seed: int = 1234):
+    """os.urandom as one seeded byte stream from its start: both NuDB
+    writers draw the same salt and uid."""
+    rng = np.random.default_rng(seed)
+    urandom = os.urandom
+    os.urandom = rng.bytes
+    try:
+        yield
+    finally:
+        os.urandom = urandom
+
+
 def _cli(cli, argv):
     out = io.StringIO()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), fixed_urandom():
         rc = cli(argv)
     return rc, out.getvalue()
+
+
+def _build_argv(fixture_dir, flags, otus):
+    return ["build-signatures", "-D", str(fixture_dir / "Annotations"),
+            "-F", str(fixture_dir / "Seqs"), "--final-kmers", "final.kmers",
+            *(f.format(otus=otus) for f in flags)]
 
 
 @pytest.fixture(scope="module")
@@ -75,11 +102,11 @@ def builds(fixture_dir, tmp_path_factory):
     """Each flag set once through both CLIs, with recall:
     {flags: {"jax"|"torch": (data dir, rc, stdout, BuildResult)}}."""
     root = tmp_path_factory.mktemp("torch_build")
+    otus = root / "otus"
+    otus.write_text("12\t1000.7\n12\t1001.7\n34\t1002.7\n")
     out = {}
     for name, flags in FLAG_SETS.items():
-        argv = ["build-signatures", "-D", str(fixture_dir / "Annotations"),
-                "-F", str(fixture_dir / "Seqs"), "--final-kmers",
-                "final.kmers", *flags]
+        argv = _build_argv(fixture_dir, flags, otus)
         out[name] = {}
         for side, cli, module, extra in (
                 ("jax", jax_cli, jax_pipeline, []),
@@ -416,75 +443,72 @@ def test_tile_edges_ties(tile_edges):
     assert out[0.8][2].shape[0] < out[0.3][2].shape[0]
 
 
-# -- the call-path verbs on edge queries ------------------------------------
+# -- the reference stores, the OTU catalog and the checkpoint ----------------
 
-def _edge_fasta(path):
-    """34 records: an empty sequence, 7 and 8 residues, lower case, '*',
-    'X' and 'x' mid-sequence, BZUJO, digits, a trailing '*', 10,000 and
-    30,000 residues and a duplicate id, around the corpus's family cores."""
-    rng = random.Random(20240817)
-    cores = [gen_corpus._rand_prot(rng, 220) for _ in gen_corpus.FUNCTIONS]
-    rnd = random.Random(7)
-
-    def noise(n):
-        return "".join(rnd.choice(gen_corpus.AA) for _ in range(n))
-
-    recs = [("empty", ""), ("len7", cores[0][:7]), ("len8", cores[0][:8])]
-    for i, core in enumerate(cores):
-        recs += [(f"core{i}", core), (f"lower{i}", core.lower()),
-                 (f"mixed{i}", core[:110].lower() + core[110:])]
-    recs += [("star", cores[1][:100] + "*" + cores[1][100:]),
-             ("xupper", cores[2][:100] + "X" + cores[2][100:]),
-             ("xlower", cores[3][:100] + "x" + cores[3][100:]),
-             ("bzujo", cores[4][:60] + "BZUJO" + cores[4][60:]),
-             ("digits", cores[5][:80] + "123" + cores[5][80:]),
-             ("trailing_star", cores[0] + "*"),
-             ("long10k", (noise(400) + cores[1]) * 16 + noise(400)),
-             ("long30k", (noise(700) + "".join(cores)) * 13 + noise(1020)),
-             ("core0", cores[6][:200]), ("noise", noise(300))]
-    assert len(recs) == 34
-    path.write_text("".join(f">{name} edge record\n{seq}\n"
-                            for name, seq in recs))
+@pytest.mark.parametrize("name", STORE_FILES)
+def test_store_files_byte_identical(builds, name):
+    want = (builds["default"]["jax"][0] / name).read_bytes()
+    assert (builds["default"]["torch"][0] / name).read_bytes() == want
+    assert len(want) > 1000
 
 
-EDGE_VERBS = {"call": [], "ignore-hypo": ["--ignore-hypo"],
-              "debug-hits": ["--debug-hits"]}
+def test_otu_index_written(builds):
+    for side in ("jax", "torch"):
+        assert (builds["default"][side][0] / "otu.index").read_text() == \
+            "0\t12\t1000.7\n1\t34\t1002.7\n"
 
 
-@pytest.mark.parametrize("verb", [*EDGE_VERBS, "matrix-distance",
-                                  "natural-breaks"])
-def test_edge_queries_byte_identical(builds, tmp_path, verb):
-    kd = builds["default"]["jax"][0]
-    fasta = tmp_path / "edge.fa"
-    _edge_fasta(fasta)
-    outs = []
-    for cli, extra in ((jax_cli, []), (torch_cli, ["--device", "cpu"])):
-        out = tmp_path / f"out{len(outs)}.tsv"
-        if verb in EDGE_VERBS:
-            argv = ["call-functions", "-d", str(kd), "-i", str(fasta), "-o",
-                    str(out), *EDGE_VERBS[verb]]
-        else:
-            argv = ["matrix-distance", "-d", str(kd), "-i", str(fasta), "-o",
-                    str(out)]
-            if verb == "natural-breaks":
-                argv += ["--natural-breaks", "3"]
-        rc, stdout = _cli(cli, argv + extra)
-        outs.append((rc, stdout, out.read_bytes()))
-    assert outs[1] == outs[0]
-    rc, stdout, body = outs[0]
-    assert rc == 0 and body
-    if verb == "debug-hits":
-        assert stdout.count("\n") > 10_000
-    if verb == "call":
-        assert body.count(b"\n") == 34
+def _shards(kd):
+    out = {}
+    for p in sorted((kd / "build.ckpt.d").iterdir()):
+        with np.load(p) as z:
+            out[p.name] = {k: z[k] for k in z.files}
+    return out
+
+
+def test_checkpoint_shards_identical(builds):
+    want = _shards(builds["default"]["jax"][0])
+    got = _shards(builds["default"]["torch"][0])
+    assert sorted(got) == sorted(want) and len(want) == 6
+    for name, arrays in want.items():
+        assert sorted(got[name]) == sorted(arrays) == [
+            "codes", "fidxs", "plens", "sids", "stat_count", "stat_func"]
+        for k, a in arrays.items():
+            assert got[name][k].dtype == a.dtype, (name, k)
+            assert np.array_equal(got[name][k], a), (name, k)
+        assert arrays["plens"].shape[0] > 0
+
+
+def test_build_resumes_from_checkpoint(builds, fixture_dir, tmp_path,
+                                       monkeypatch):
+    """The artifacts deleted and the shards kept: a rerun parses no FASTA
+    file and writes the same artifacts."""
+    from signature_kmers_tpu_torch.models.signature_builder import \
+        SignatureBuilder
+
+    first = builds["default"]["torch"][0]
+    kd = tmp_path / "kd"
+    shutil.copytree(first / "build.ckpt.d", kd / "build.ckpt.d")
+    parsed = []
+    extract = SignatureBuilder._extract_file
+    monkeypatch.setattr(SignatureBuilder, "_extract_file",
+                        lambda self, *a: parsed.append(a) or extract(self, *a))
+    argv = _build_argv(fixture_dir, STORE_FLAGS, first.parent / "otus") + [
+        "--kmer-data-dir", str(kd), "--device", "cpu"]
+    rc, stdout = _cli(torch_cli, argv)
+    assert (rc, stdout) == builds["default"]["torch"][1:3]
+    assert parsed == []
+    for name in (*TEXT_ARTIFACTS, *STORE_FILES):
+        assert _artifact(kd, name) == _artifact(first, name), name
+    want = np.load(first / "kmer_data.npz")
+    got = np.load(kd / "kmer_data.npz")
+    for key in want.files:
+        assert np.array_equal(got[key], want[key])
 
 
 # -- what the port leaves out -------------------------------------------------
 
-@pytest.mark.parametrize("flag", [["--mesh"], ["--nudb-file", "x"],
-                                  ["--perfect-hash", "x"],
-                                  ["--otu-file", "x"], ["--checkpoint"],
-                                  ["--perfect-hash-data", "x"]])
+@pytest.mark.parametrize("flag", [["--mesh"]])
 def test_unported_build_flags_are_errors(flag, tmp_path):
     with pytest.raises(SystemExit) as e, \
             contextlib.redirect_stderr(io.StringIO()):

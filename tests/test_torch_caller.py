@@ -1,10 +1,9 @@
 """The port's FunctionCaller(device="cpu") and CLI verbs against the JAX
 package's FunctionCaller and CLI: best calls, call records, hits,
-host_fallback_frac and output bytes must be identical (exact equality)."""
+host_fallback_frac and output bytes must be identical (exact equality).
+The other CLI verbs are in tests/test_torch_caller_cli.py."""
 
-import contextlib
 import dataclasses
-import io
 
 import numpy as np
 import pytest
@@ -284,109 +283,3 @@ def test_gather_hits_batch_matches_jax(gather_case, fixture_dir, need_aux):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g[found], w[found])
     assert found.sum() > 0
-
-
-def _run_cli(cli, argv):
-    out, err = io.StringIO(), io.StringIO()
-    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = cli(argv)
-    return rc, out.getvalue(), err.getvalue()
-
-
-def _verb_inputs(fixture_dir, root):
-    """A folder of the query files plus an empty one, a folder output that
-    exists already, and a merge base of two genus dirs whose families
-    (named by function index) hold parts of the query files."""
-    seqs = _query_fasta(fixture_dir)
-    folder = root / "folder_in"
-    folder.mkdir()
-    for f in seqs[:3]:
-        (folder / f.name).write_bytes(f.read_bytes())
-    (folder / "empty.fa").write_text("")
-    base = root / "base"
-    for gi, g in enumerate(("g1", "g2")):
-        fam_dir = base / g / "fasta_by_function"
-        fam_dir.mkdir(parents=True)
-        (base / g / "local.family.defs").write_text("present\n")
-        for fam, f in enumerate(seqs[:3]):
-            recs = [r for r in f.read_text().split(">") if r.strip()]
-            part = recs[gi::2] if fam != 2 or gi == 0 else []
-            (fam_dir / str(fam)).write_text("".join(">" + r for r in part))
-    (base / "not_a_genus").mkdir()
-    return seqs, folder, base
-
-
-VERBS = ("debug-hits", "debug-scoring", "annotate-seqs", "matrix-distance",
-         "natural-breaks", "matrix-distance-folder", "matrix-distance-merge")
-
-
-def _verb_argv(verb, data_dir, fixture_dir, inputs, out):
-    seqs, folder, base = inputs
-    kd = str(data_dir)
-    return {
-        "debug-hits": ["call-functions", "-d", kd, "-i", *map(str, seqs),
-                       "-o", f"{out}/calls.tsv", "--debug-hits"],
-        "debug-scoring": ["call-functions", "-d", kd, "-i", str(seqs[0]),
-                          "-o", f"{out}/calls.tsv", "--debug-scoring"],
-        "annotate-seqs": ["annotate-seqs", kd, "genus-unused",
-                          str(fixture_dir / "Queries"), f"{out}/calls",
-                          f"{out}/uncalled"],
-        "matrix-distance": ["matrix-distance", "-d", kd, "-i",
-                            str(seqs[0])],
-        "natural-breaks": ["matrix-distance", "-d", kd, "-i", str(seqs[1]),
-                           "--natural-breaks", "3", "-o", f"{out}/d.tsv"],
-        "matrix-distance-folder": ["matrix-distance-folder", kd,
-                                   str(folder), f"{out}/folder"],
-        "matrix-distance-merge": ["matrix-distance-merge", kd, str(base),
-                                  f"{out}/merge"],
-    }[verb]
-
-
-def _outputs(verb, cli, data_dir, fixture_dir, inputs, out, extra=()):
-    out.mkdir()
-    if verb == "matrix-distance-folder":
-        # a finished output is left as it is on a restart
-        (out / "folder").mkdir()
-        (out / "folder" / inputs[1].iterdir().__next__().name).write_text(
-            "SENTINEL\n")
-    rc, stdout, stderr = _run_cli(
-        cli, _verb_argv(verb, data_dir, fixture_dir, inputs, out)
-        + list(extra))
-    files = {p.relative_to(out).as_posix(): p.read_bytes()
-             for p in sorted(out.rglob("*")) if p.is_file()}
-    return rc, stdout, stderr, files
-
-
-@pytest.fixture(scope="module")
-def jax_verbs(data_dir, fixture_dir, tmp_path_factory):
-    """Each verb once through the JAX CLI: (rc, stdout, stderr, files)."""
-    root = tmp_path_factory.mktemp("verbs")
-    inputs = _verb_inputs(fixture_dir, root)
-    runs = {verb: _outputs(verb, jax_cli, data_dir, fixture_dir, inputs,
-                           root / f"jax-{verb}") for verb in VERBS}
-    return root, inputs, runs
-
-
-@pytest.mark.parametrize("verb", VERBS)
-def test_cli_verbs_byte_identical(jax_verbs, data_dir, fixture_dir, verb):
-    root, inputs, runs = jax_verbs
-    want = runs[verb]
-    got = _outputs(verb, torch_cli, data_dir, fixture_dir, inputs,
-                   root / f"torch-{verb}", ["--device", "cpu"])
-    assert got == want
-    rc, stdout, stderr, files = got
-    assert rc == 0
-    if verb == "debug-hits":
-        assert stdout.count("\n") > 1000 and stdout.endswith("\t\n")
-    elif verb == "debug-scoring":
-        assert "Initial calls:" in stderr and "Offset=" in stderr
-    elif verb == "matrix-distance":
-        assert stdout.count("\n") > 0
-    elif verb == "natural-breaks":
-        assert stderr.startswith("natural breaks: ")
-    elif verb == "matrix-distance-folder":
-        assert len(files) == 3 and b"SENTINEL\n" in files.values()
-    elif verb == "matrix-distance-merge":
-        assert sorted(files) == ["merge/0", "merge/1", "merge/2"]
-    else:
-        assert files["calls"] and files["uncalled"]

@@ -46,9 +46,10 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def data_dir(fixture_dir, tmp_path_factory):
     out = tmp_path_factory.mktemp("svc_kd") / "kd"
+    # --host-only: the same artifacts, without compiling the XLA selection
     jax_cli(["build-signatures", "-D", str(fixture_dir / "Annotations"),
              "-F", str(fixture_dir / "Seqs"), "--kmer-data-dir", str(out),
-             "--final-kmers", "final.kmers", "--no-recall"])
+             "--final-kmers", "final.kmers", "--no-recall", "--host-only"])
     (out / "gnames").mkdir()
     (out / "gnames" / "1000.7").write_text("Genus species 1000.7\n")
     return out
@@ -324,6 +325,52 @@ def test_checkpoint_reopens_to_the_same_table(answers):
     assert tt.n_items == jt.n_items
     for a, b in zip(tt.occupied(), jt.occupied()):
         np.testing.assert_array_equal(a, b)
+
+
+def test_query_answers_during_checkpoint(answers, data_dir, tmp_path):
+    """/checkpoint saves off the event loop's thread: a /query sent while
+    a slow save runs answers before the checkpoint does, and both
+    responses are the JAX service's bytes."""
+    svc = torch_server.AnnotationService(
+        _copy(data_dir, tmp_path / "kd"), device="cpu")
+    started, release = threading.Event(), threading.Event()
+    save = svc.table.save
+
+    def slow_save(*a, **kw):
+        started.set()
+        release.wait(10)
+        return save(*a, **kw)
+
+    svc.table.save = slow_save
+    done = []
+
+    async def one(name, method, path, body=b""):
+        reader = asyncio.StreamReader()
+        head = f"{method} {path} HTTP/1.1\r\nHost: x\r\n"
+        if body:
+            head += f"Content-Length: {len(body)}\r\n"
+        reader.feed_data(head.encode() + b"\r\n" + body)
+        reader.feed_eof()
+        sink = _Sink()
+        await torch_server._handle(svc, asyncio.Event(), reader, sink)
+        done.append(name)
+        return bytes(sink.data)
+
+    async def run():
+        ckpt = asyncio.ensure_future(one("checkpoint", "GET", "/checkpoint"))
+        while not started.is_set():
+            await asyncio.sleep(0.01)
+        b = answers[2]
+        query = await one("query", "POST", "/query",
+                          b["queries"] + b["related"])
+        release.set()
+        return query, await ckpt
+
+    query, ckpt = asyncio.run(run())
+    assert done == ["query", "checkpoint"]
+    assert query == answers[0][("wide", "query")][0]
+    assert ckpt == answers[0][("wide", "checkpoint")][0]
+    assert ckpt.endswith(b"checkpointed\n")
 
 
 def _start(data_dir, tmp_path, **kw):
