@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero:
 
 1. environment: torch/CUDA versions and the card's name and power limit;
-   builds the seven CUDA kernel libraries from the checkout (one nvcc
+   builds the eight CUDA kernel libraries from the checkout (one nvcc
    each, in parallel; csrc/probe_wide.cu holds three entry points) and
    the native host runtime (g++), which must build.
 2. each kernel against its plain PyTorch version on the card, at the main
@@ -76,7 +76,29 @@ Phases, in order; any failure exits non-zero:
    each size's timed runs is held to its plain version on the same
    inputs, as in 3b.  Also counts _pair_counts' k-mer blocks per call and
    times one dense block's float32 product.
-3f. the annotation service (run after 3c): phase 3's table saved to a
+3h. the (dp, tp) mesh in one process (run after 3c, while phase 3's
+   table and caller are loaded): a mesh of four cells on the one card,
+   [cuda:0] * 4 at tp 2 (every card with the default tp where there are
+   several).  ParallelFunctionCaller over phase 3's table (sharded into
+   two ShardedWideTable shards, each cell holding its shard's rows)
+   calls both query sets at call_batch 8192, a warm-up and three timed
+   calls each; every row (best call and calls) must equal phase 3's
+   single-device results; gather_hits_batch(need_aux=True) of the 2048
+   keep-hits rows must equal the single-device gather; MatrixDistance
+   with a mesh caller and compute(mesh=) at S 2048 on 3c's table must
+   equal the single-device pair counts; a ShardedBucketTable of 2M of the
+   keys (tp 2) must call uniform300 as the single-device cuckoo caller
+   does; a ShardedKmerTable of 4M of the keys (tp 2) probed by
+   probe_sharded with 2.5M windows (half keys) must give the key set's
+   found mask and value words, and each cell's probe_table launch must
+   equal its plain version.  Launch counts are reset before each run and
+   the phase fails if a kernel of the run did not launch or a plain
+   version ran.  Prints each step's seconds, the mesh's seqs/s beside
+   phase 3's, probe_table's time as issued and held against its bound
+   (each distinct sector of key_hi, key_lo and v0-v2 that this run's
+   walks read, counted once, plus the streams), the plain
+   version's time and gather_ms, peak device memory and the wall time.
+3f. the annotation service (run after 3h): phase 3's table saved to a
    data dir with a function.index; the port's serve_async in a thread on
    port 0 (--warm 300, device="cuda"), started twice, at SKT_SERVE_DEPTH
    1 and 4; 16 client processes POST uniform300 sequences as /query
@@ -167,8 +189,9 @@ Phases, in order; any failure exits non-zero:
    seconds per phase (run_build's names, the two writers' included), the
    files' sizes, peak device memory and each step's seconds.
 4. one JSON line of per-kernel numbers (launches from one run of each
-   kernel's own path, named in launches_of), the card line, and the
-   contract line {"ok": true, "device": {...}} last.
+   kernel's own path, named in launches_of; mesh_launches: each kernel's
+   launches in phase 3h's runs), the card line, and the contract line
+   {"ok": true, "device": {...}} last.
 
 Exits non-zero without a result when CUDA is unavailable or when run from
 a directory without the port beside it.
@@ -341,7 +364,8 @@ def counting_plain_versions():
                                 "lookup_bucket_reference",
                                 "probe_cmph_reference",
                                 "probe_cmph_aux_reference",
-                                "lookup_cmph_reference")),
+                                "lookup_cmph_reference",
+                                "probe_table_reference")),
                        (automaton, ("device_automaton_reference",
                                     "pack_records_reference")),
                        (build_extract, ("build_extract_windows_reference",)),
@@ -1404,6 +1428,334 @@ def row_gather_ms(rows_t, ix):
     all_ms = {k: time_ms(f, 20) for k, f in calls.items()}
     best = min(all_ms, key=all_ms.get)
     return all_ms[best], best, all_ms
+
+
+def linear_walks(key_hi, key_lo, qhi, qlo, max_probes: int):
+    """The walks of queries through one linear-probing shard (host numpy,
+    the kernel's rule) -> (first slot per query, every key_hi slot read,
+    every key_lo slot read, every hit slot): what a probe of this run's
+    data must read."""
+    import numpy as np
+
+    from signature_kmers_tpu_torch.ops import hashing
+
+    mask = np.uint32(key_hi.shape[0] - 1)
+    cur0 = hashing.hash_kmer(qhi, qlo) & mask
+    cur = cur0.copy()
+    live = np.ones(qhi.shape[0], bool)
+    hi_slots, lo_slots, hit_slots = [], [], []
+    for _ in range(max(max_probes, 1)):
+        ix = np.nonzero(live)[0]
+        if not ix.size:
+            break
+        c = cur[ix]
+        kh = key_hi[c]
+        same_hi = kh == qhi[ix]
+        h = same_hi & (key_lo[c] == qlo[ix])
+        hi_slots.append(c)
+        lo_slots.append(c[same_hi])
+        hit_slots.append(c[h])
+        live[ix] = ~h & (kh != 0xFFFFFFFF)
+        cur[ix] = (c + np.uint32(1)) & mask
+    cat = (lambda xs: np.concatenate(xs) if xs
+           else np.zeros(0, np.uint32))
+    return cur0, cat(hi_slots), cat(lo_slots), cat(hit_slots)
+
+
+def probe_table_bound_bytes(n_queries: int, hi_slots, lo_slots,
+                            hit_slots) -> int:
+    """Bytes a probe of these walks must move, each input byte counted
+    once: every distinct 32-byte sector of key_hi, of key_lo and of each
+    of v0-v2 that the walks read, plus the 8 bytes in and 13 out of each
+    query."""
+    import numpy as np
+
+    def sectors(slots):  # 8 four-byte slots to a sector
+        return int(np.unique(slots // 8).size)
+
+    return 32 * (sectors(hi_slots) + sectors(lo_slots)
+                 + 3 * sectors(hit_slots)) + 21 * n_queries
+
+
+def mesh_phase(card, mesh, table, entries, function_index, cfg, sets,
+               outputs, p3_rates, caller, kh, md, md_sequences, wrappers,
+               rng, n_cuckoo=2_000_000, n_linear=4_000_000,
+               n_windows=2_500_000):
+    """Phase 3h: the (dp, tp) mesh in one process.  -> this phase's
+    numbers: the mesh path's launches, the linear probe's report."""
+    import numpy as np
+    import torch
+
+    from signature_kmers_tpu_torch.core.config import (DeviceConfig,
+                                                       DistanceConfig)
+    from signature_kmers_tpu_torch.io.fasta import SequenceBatch
+    from signature_kmers_tpu_torch.models.function_caller import (
+        FunctionCaller, pad_bucketed)
+    from signature_kmers_tpu_torch.models.matrix_distance import \
+        MatrixDistance
+    from signature_kmers_tpu_torch.ops import probe
+    from signature_kmers_tpu_torch.parallel.parallel_caller import \
+        ParallelFunctionCaller
+    from signature_kmers_tpu_torch.parallel.sharded_table import (
+        ShardedKmerTable, probe_sharded, split_rows)
+    from signature_kmers_tpu_torch.table import BucketKmerTable
+
+    on_card = mesh.devices[0][0].type == "cuda"
+    dev0 = mesh.devices[0][0]
+    t_phase = time.perf_counter()
+    steps = {}
+    out = {"mesh": {"dp": mesh.shape["dp"], "tp": mesh.shape["tp"],
+                    "devices": [str(d) for d in mesh.flat]},
+           "steps_s": steps, "launches": {}}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    @contextlib.contextmanager
+    def step(name):
+        t0 = time.perf_counter()
+        yield
+        sync()
+        steps[name] = time.perf_counter() - t0
+        print(f"mesh step {name}: {steps[name]:.4f} s [{card}]")
+
+    def counted(names, fn):
+        """fn() with the named wrappers' counts from 0 and every plain
+        version counted -> (its result, launches)."""
+        for n in names:
+            wrappers[n].launches = 0
+        with counting_plain_versions() as plain:
+            res = fn()
+            sync()
+        launched = {n: wrappers[n].launches for n in names}
+        if on_card and any(plain.values()):
+            fail(f"phase 3h ran plain versions: "
+                 f"{ {k: v for k, v in plain.items() if v} }")
+        for n, k in launched.items():
+            if on_card and k <= 0:
+                fail(f"phase 3h: {n} was not launched")
+        return res, launched
+
+    def same_results(got, want):
+        return sum(
+            (g.seq_id, g.length, dataclasses.astuple(g.best),
+             [dataclasses.astuple(c) for c in g.calls])
+            != (w.seq_id, w.length, dataclasses.astuple(w.best),
+                [dataclasses.astuple(c) for c in w.calls])
+            for g, w in zip(got, want)) + abs(len(got) - len(want))
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    print(f"mesh: dp {mesh.shape['dp']} x tp {mesh.shape['tp']} over "
+          f"{', '.join(str(d) for d in mesh.flat)} [{card}]")
+    call_kernels = ("pack_call_windows_rows16", "probe_wide",
+                    "device_automaton_packed")
+
+    # ---- the wide table: the call path --------------------------------------
+    with step("wide sharding (ShardedWideTable.from_table)"):
+        pc = ParallelFunctionCaller(table, function_index, cfg,
+                                    DeviceConfig(call_batch=8192), mesh=mesh)
+    st = pc.stable
+    print(f"sharded wide table: bits {st.bits}, {st.packed.shape[2] // 2} "
+          f"slots, ov_bits {st.ov_bits}, overflow {st.ov_any}, keys per "
+          f"shard {[s.n_items for s in pc.shards]}")
+    with step("upload the probe rows to every cell"):
+        pc.cell_tables()
+    with step("warm-up calls"):
+        for batch in sets.values():
+            pc.call_batch(batch)
+    rates = {}
+
+    def timed_calls():
+        res = {}
+        for name, batch in sets.items():
+            rates[name] = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                res[name] = pc.call_batch(batch)
+                sync()
+                rates[name].append(len(batch) / (time.perf_counter() - t0))
+        return res
+
+    with step("timed calls (3 per set)"):
+        mesh_res, out["launches"]["call"] = counted(call_kernels,
+                                                    timed_calls)
+    for name in sets:
+        print(f"mesh {name}: seqs/s {', '.join(f'{r:.1f}' for r in rates[name])}"
+              f" (phase 3, one device: "
+              f"{', '.join(f'{r:.1f}' for r in p3_rates[name])}) [{card}]")
+    out["seqs_per_s"] = rates
+    with step("compare every row with phase 3"):
+        bad = {n: same_results(mesh_res[n], outputs[n]) for n in sets}
+    print(f"mesh call path: rows differing from phase 3's single-device "
+          f"results (best call and calls): {bad}; launches "
+          f"{out['launches']['call']}")
+    if any(bad.values()):
+        fail(f"phase 3h: mesh call results differ from one device: {bad}")
+
+    # ---- /lookup: the hits with their value words ----------------------------
+    codes, lengths = pad_bucketed(kh, len(kh))
+    want = caller.gather_hits_batch(codes, lengths, need_aux=True)
+    with step(f"gather_hits_batch(need_aux) of {len(kh)} rows"):
+        got, out["launches"]["lookup"] = counted(
+            ("probe_wide_aux",),
+            lambda: pc.gather_hits_batch(codes, lengths, need_aux=True))
+    bad = sum(int((np.asarray(g) != np.asarray(w)).sum())
+              for g, w in zip(got, want))
+    print(f"mesh /lookup: {int(want[0].sum())} hits, {bad} words differ "
+          f"from one device; launches {out['launches']['lookup']}")
+    if bad:
+        fail(f"phase 3h: the mesh hit gather differs ({bad} words)")
+    del pc
+    gc.collect()
+
+    # ---- the distance mask and the pair counts --------------------------------
+    S = 2048
+    d_codes = md_sequences(S)
+    d_batch = SequenceBatch(d_codes.reshape(-1),
+                            (np.arange(S + 1) * DIST_LEN).astype(np.int32),
+                            [f"d{i}" for i in range(S)], [""] * S)
+    want = md.compute([d_batch])
+    with step("distance mesh caller (600K keys)"):
+        mdm = MatrixDistance(md.table, md.caller.function_index,
+                             DistanceConfig(), DeviceConfig(), device=dev0)
+        mdm.mesh_caller = ParallelFunctionCaller(
+            md.table, md.caller.function_index, cfg, DeviceConfig(),
+            mesh=mesh)
+        mdm.compute([d_batch], mesh=mesh)  # warm-up: distance rows go up
+    with step(f"MatrixDistance.compute(mesh) at S {S}"):
+        got, out["launches"]["distance"] = counted(
+            ("probe_wide_distance",),
+            lambda: mdm.compute([d_batch], mesh=mesh))
+    if (got.ids, got.pairs) != (want.ids, want.pairs):
+        fail("phase 3h: mesh pair counts differ from one device")
+    print(f"mesh distance S {S}: {len(got.pairs)} pairs, equal to one "
+          f"device; launches {out['launches']['distance']}")
+    del mdm
+    gc.collect()
+
+    # ---- the cuckoo table ----------------------------------------------------
+    hi, lo, v0, v1, v2 = entries
+    pick = np.sort(rng.choice(hi.shape[0], min(n_cuckoo, hi.shape[0]),
+                              replace=False))
+    with step(f"cuckoo build of {pick.size} keys"):
+        ctable = BucketKmerTable.build(hi[pick], lo[pick], v0[pick],
+                                       v1[pick], v2[pick])
+    with step("cuckoo sharding (ShardedBucketTable.from_table)"):
+        pcc = ParallelFunctionCaller(ctable, function_index, cfg,
+                                     DeviceConfig(call_batch=8192),
+                                     mesh=mesh)
+    batch = sets["uniform300"]
+    scc = FunctionCaller(ctable, function_index, cfg,
+                         DeviceConfig(call_batch=8192), device=dev0)
+    want = scc.call_batch(batch)
+    pcc.call_batch(batch)  # warm-up
+    with step("cuckoo mesh call"):
+        got, out["launches"]["cuckoo"] = counted(
+            ("pack_call_windows_rows16", "probe_bucket",
+             "device_automaton_packed"), lambda: pcc.call_batch(batch))
+    bad = same_results(got, want)
+    print(f"mesh cuckoo: {sum(r.best.function_index != 0xFFFF for r in got)}"
+          f" of {len(got)} called, {bad} rows differ from one device; "
+          f"launches {out['launches']['cuckoo']}")
+    if bad:
+        fail(f"phase 3h: mesh cuckoo calls differ ({bad} rows)")
+    del pcc, scc, ctable
+    gc.collect()
+
+    # ---- the linear table: L2 ------------------------------------------------
+    pick = np.sort(rng.choice(hi.shape[0], min(n_linear, hi.shape[0]),
+                              replace=False))
+    keys = [a[pick] for a in (hi, lo, v0, v1, v2)]
+    with step(f"ShardedKmerTable.build of {pick.size} keys"):
+        lt = ShardedKmerTable.build(*keys, mesh.shape["tp"])
+    with step("linear shards to the mesh"):
+        cells = lt.to_mesh(mesh)
+    n_hit = n_windows // 2
+    members = rng.choice(pick.size, n_hit)
+    qh = np.concatenate([keys[0][members], rng.integers(
+        0, 1 << 24, n_windows - n_hit).astype(np.uint32)])
+    ql = np.concatenate([keys[1][members], rng.integers(
+        0, 1 << 24, n_windows - n_hit).astype(np.uint32)])
+    perm = rng.permutation(n_windows)
+    qh, ql = qh[perm], ql[perm]
+    qhi = torch.from_numpy(qh.view(np.int32)).to(dev0)
+    qlo = torch.from_numpy(ql.view(np.int32)).to(dev0)
+    with step(f"probe_sharded of {n_windows} windows"):
+        res, out["launches"]["linear"] = counted(
+            ("probe_table",),
+            lambda: probe_sharded(mesh, cells, qhi, qlo, lt.max_probes))
+    # the truth: members found with their words, aliens found only when
+    # they are keys
+    sk = (keys[0].astype(np.int64) << 24) | keys[1]
+    order = np.argsort(sk)
+    qk = (qh.astype(np.int64) << 24) | ql
+    at = np.minimum(np.searchsorted(sk[order], qk), sk.size - 1)
+    is_key = sk[order][at] == qk
+    src = order[at]
+    found = res[0].cpu().numpy()
+    words = [r.cpu().numpy().view(np.uint32) for r in res[1:]]
+    bad = int((found != is_key).sum()) + sum(
+        int((np.where(is_key, k[src], 0) != w).sum())
+        for k, w in zip(keys[2:], words))
+    print(f"probe_sharded: max_probes {lt.max_probes}, {int(found.sum())} of "
+          f"{n_windows} found, {bad} differ from the key set; launches "
+          f"{out['launches']['linear']}")
+    if bad:
+        fail(f"phase 3h: probe_sharded differs from the key set ({bad})")
+    # each cell's kernel call against its plain version on the same tensors
+    mism, err = 0, 0
+    for (a, b), row, cell_row in zip(split_rows(n_windows, mesh.shape["dp"]),
+                                     mesh.devices, cells):
+        for dev, tabs in zip(row, cell_row):
+            q = (qhi[a:b].to(dev), qlo[a:b].to(dev))
+            k_out = probe.probe_table(*tabs, *q, lt.max_probes)
+            p_out = probe.probe_table_reference(*tabs, *q, lt.max_probes)
+            for x, y in zip(k_out, p_out):
+                d = (x.to(torch.int64) - y.to(torch.int64)).abs()
+                mism += int((d != 0).sum())
+                err = max(err, int(d.max()) if d.numel() else 0)
+    print(f"probe_table: every cell's kernel call against its plain "
+          f"version: {mism} words differ")
+    if mism:
+        fail(f"phase 3h: probe_table differs from its plain version ({mism})")
+    a, b = split_rows(n_windows, mesh.shape["dp"])[0]
+    tabs = cells[0][0]
+    q = (qhi[a:b], qlo[a:b])
+    r = dict(mismatches=mism, max_abs_err=float(err),
+             path_shape=f"{b - a} windows against one of "
+                        f"{lt.n_shards} shards of {lt.key_hi.shape[1]} slots")
+    if on_card:
+        cur0, hi_slots, lo_slots, hit_slots = linear_walks(
+            lt.key_hi[0], lt.key_lo[0], qh[a:b], ql[a:b], lt.max_probes)
+        nbytes = probe_table_bound_bytes(b - a, hi_slots, lo_slots,
+                                         hit_slots)
+        r["bound_ms"], r["bound_by"] = bound_ms(nbytes, 0)
+        r["ms"] = time_ms(lambda: probe.probe_table(*tabs, *q,
+                                                    lt.max_probes), 20)
+        r["held_ms"] = time_ms(lambda: probe.probe_table(
+            *tabs, *q, lt.max_probes), 20, hold=True)
+        r["plain_ms"] = time_ms(lambda: probe.probe_table_reference(
+            *tabs, *q, lt.max_probes), 2)
+        cur0_t = torch.from_numpy(cur0.astype(np.int64)).to(dev0)
+        r["gather_ms"], call, _ = row_gather_ms(tabs[0].view(-1, 1), cur0_t)
+        r["gather_calls"] = [call]
+        print(f"probe_table on {r['path_shape']}: {r['ms']:.4f} ms as "
+              f"issued, {r['held_ms']:.4f} ms held, plain "
+              f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ms "
+              f"({nbytes} bytes: {hi_slots.size} slots walked, "
+              f"{hit_slots.size} hits, each sector counted once), gather "
+              f"yardstick "
+              f"{r['gather_ms']:.4f} ms ({call}) [{card}]")
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["probe_table"] = r
+    del cells, lt
+    gc.collect()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"mesh phase: {out['wall_s']:.1f} s wall, peak device memory "
+          f"{out.get('peak_gib', 0):.3f} GiB [{card}]")
+    return out
 
 
 def layouts_phase(card, report, record, differences, hold_path_calls,
@@ -3005,6 +3357,7 @@ def main() -> int:
     for w in wrappers.values():
         w.launches = 0
     outputs = {}
+    p3_rates = {name: [] for name in sets}
     for name, batch in sets.items():
         for rep in range(3):
             torch.cuda.reset_peak_memory_stats()
@@ -3016,6 +3369,7 @@ def main() -> int:
             rows = caller.rows_processed - before[0]
             frac = (caller.rows_host_fallback - before[1]) / max(rows, 1)
             outputs[name] = res
+            p3_rates[name].append(len(res) / dt)
             peak = torch.cuda.max_memory_allocated() / 2**30
             print(f"{name} run {rep}: {len(res)} seqs in {dt:.4f} s = "
                   f"{len(res) / dt:.1f} seqs/s (dispatch "
@@ -3207,6 +3561,19 @@ def main() -> int:
           f"float32 bound {flop / SCALAR_OPS_PER_S * 1e3:.4f} ms; "
           f"{dist_blocks[8192]:g} blocks per S = 8192 call [{card}]")
 
+    # ---- phase 3h: the (dp, tp) mesh in one process ----------------------
+    from signature_kmers_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh = (mesh_mod.make_mesh(tp=2, devices=[dev] * 4)
+            if torch.cuda.device_count() == 1 else mesh_mod.make_mesh())
+    mesh_out = mesh_phase(
+        card, mesh, table, entries, function_index, cfg, sets, outputs,
+        p3_rates, caller, kh, md, md_sequences,
+        dict(all_wrappers, probe_bucket=probe.probe_bucket,
+             probe_table=probe.probe_table), rng)
+    report["probe_table"] = mesh_out.pop("probe_table")
+    print(json.dumps({"mesh": mesh_out}))
+
     # the call and distance paths' tables go first
     del caller, md, md_drows
     gc.collect()  # the timed wrappers tie the callers in cycles
@@ -3285,6 +3652,8 @@ def main() -> int:
                          "signature_kmers_tpu/ops/probe.py:86"),
         "probe_cmph": ("signature_kmers_tpu_torch/csrc/probe_cmph.cu",
                        "signature_kmers_tpu/table/cmph_table.py:131"),
+        "probe_table": ("signature_kmers_tpu_torch/csrc/probe_table.cu",
+                        "signature_kmers_tpu/ops/probe.py:26"),
     }
     # each kernel's launches in one run of its own path, counted from 0
     # just before that run: the call path (phase 3), the keep-hits path
@@ -3298,7 +3667,14 @@ def main() -> int:
                          build_select_runs=build_launches[
                              "build_select_runs"],
                          probe_bucket=layout_launches["probe_bucket"],
-                         probe_cmph=layout_launches["probe_cmph"])
+                         probe_cmph=layout_launches["probe_cmph"],
+                         probe_table=mesh_out["launches"]["linear"][
+                             "probe_table"])
+    # each kernel's launches in phase 3h's runs, per run
+    mesh_launches = {}
+    for run, counts in mesh_out["launches"].items():
+        for name, n in counts.items():
+            mesh_launches.setdefault(name, {})[run] = n
     for name in ("probe_bucket", "probe_cmph"):
         report[name]["aux_launches"] = layout_launches[f"{name}_aux"]
     launches_of = dict.fromkeys(
@@ -3317,7 +3693,9 @@ def main() -> int:
                      f"{LAYOUT_DIST_S} matrix distance, 2 calls",
         probe_cmph="CMPH path (phase 3e, --cmph-aliasing): 16384 "
                    "uniform300 + 16384 mixed60_600 rows, 2 timed calls "
-                   f"each; aux: {N_KEEP_HITS} keep-hits rows")
+                   f"each; aux: {N_KEEP_HITS} keep-hits rows",
+        probe_table="mesh linear path (phase 3h): probe_sharded of "
+                    "2,500,000 windows on a dp x tp mesh, one call")
     kernels = []
     for name, (src, replaces) in sources.items():
         r = report[name]
@@ -3348,6 +3726,7 @@ def main() -> int:
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None,
                             gather_ms=r.get("gather_ms"),
+                            mesh_launches=mesh_launches.get(name, {}),
                             mismatches=r["mismatches"], **extra))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall")
     print(json.dumps({"kernels": kernels}))

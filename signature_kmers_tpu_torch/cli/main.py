@@ -12,10 +12,14 @@
                           relayout, import, export-cmph, export-nudb)
   setup-build             ~ kmers-setup-build.pl
 
-Flags and output bytes are the JAX package's (``skt``) for the same verbs;
-each verb runs as one process on one device.  ``--device cuda`` (the
-default) runs the kernels, ``--device cpu`` their plain PyTorch versions;
-table-tool and setup-build are host code and take no ``--device``.
+Flags and output bytes are the JAX package's (``skt``) for the same verbs.
+Each verb runs as one process: on one device, or with ``--mesh`` (and
+``--tp``) on a (dp, tp) mesh of every local device of ``--device``'s type
+(parallel/mesh.py).  ``--device cuda`` (the default) runs the kernels,
+``--device cpu`` their plain PyTorch versions; table-tool and setup-build
+are host code and take no ``--device``.  Multi-process runs
+(SKT_COORDINATOR) and ``build-signatures --mesh`` are not ported yet and
+fail.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from ..io import fasta as fasta_io, formats
 from ..models import pipeline
 from ..models.function_caller import FunctionCaller
 from ..models.matrix_distance import MatrixDistance
+from ..parallel import distributed, mesh as mesh_mod
 from ..table import LAYOUTS
 from ..utils import paths
 
@@ -44,6 +49,25 @@ def _add_device(p):
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda runs the kernels; cpu runs their plain "
                         "PyTorch versions")
+
+
+def _add_mesh(p, help_text: str, tp: bool = True):
+    p.add_argument("--mesh", action="store_true", help=help_text)
+    if tp:
+        p.add_argument("--tp", type=int, default=None,
+                       help="table-parallel shards within the mesh")
+
+
+_MESH_HELP = "shard work over all local devices (dp x tp mesh)"
+
+
+def _mesh(args):
+    """The (dp, tp) mesh over every local device of --device's type, or
+    None without --mesh."""
+    if not getattr(args, "mesh", False):
+        return None
+    return mesh_mod.make_mesh(tp=getattr(args, "tp", None),
+                              devices=mesh_mod.local_devices(args.device))
 
 
 def _add_build(sub):
@@ -90,11 +114,17 @@ def _add_build(sub):
     p.add_argument("--table-layout", default="wide", choices=LAYOUTS,
                    help="signature-table layout (see table/wide_table.py "
                         "and table/bucket_table.py)")
+    _add_mesh(p, "shard the selection pass over all local devices (not "
+                 "ported yet: exits with an error)", tp=False)
     _add_device(p)
     p.set_defaults(func=cmd_build)
 
 
 def cmd_build(args):
+    if args.mesh:
+        print("build-signatures: --mesh is not ported yet (the sharded "
+              "build); run without it", file=sys.stderr)
+        raise SystemExit(2)
     cfg = Config()
     cfg = dataclasses.replace(
         cfg, build=dataclasses.replace(
@@ -151,27 +181,36 @@ def _add_call(sub):
                         "probe it with the reference's aliasing semantics "
                         "(no membership check, cmph_kmer.h:138-147) "
                         "instead of importing to an exact table")
+    _add_mesh(p, _MESH_HELP)
     _add_device(p)
     p.set_defaults(func=cmd_call)
 
 
-def _caller(data_dir, ignore_hypo: bool, device,
-            cmph_aliasing: bool = False) -> FunctionCaller:
+def _caller(args, data_dir, cmph_aliasing: bool = False) -> FunctionCaller:
+    """The verb's caller: a ParallelFunctionCaller with --mesh, else a
+    FunctionCaller on --device."""
+    distributed.initialize()
     cfg = Config()
     table, function_index = pipeline.load_data_dir(
         data_dir, cfg, cmph_aliasing=cmph_aliasing)
-    call_cfg = dataclasses.replace(cfg.call, ignore_hypothetical=ignore_hypo)
+    call_cfg = dataclasses.replace(cfg.call,
+                                   ignore_hypothetical=args.ignore_hypo)
+    mesh = _mesh(args)
+    if mesh is not None:
+        from ..parallel.parallel_caller import ParallelFunctionCaller
+
+        return ParallelFunctionCaller(table, function_index, call_cfg,
+                                      cfg.device, mesh=mesh)
     return FunctionCaller(table, function_index, call_cfg, cfg.device,
-                          device=device)
+                          device=args.device)
 
 
 def cmd_call(args):
-    caller = _caller(args.data_dir, args.ignore_hypo, args.device,
-                     args.cmph_aliasing)
+    caller = _caller(args, args.data_dir, args.cmph_aliasing)
     function_index = caller.function_index
     out = open(args.output_file, "w") if args.output_file else sys.stdout
     try:
-        for path in args.input_files:
+        for path in distributed.shard_inputs(args.input_files):
             batch = fasta_io.read_fasta_batch(path)
             results = caller.call_batch(batch, keep_hits=args.debug_hits)
             for i, res in enumerate(results):
@@ -212,15 +251,17 @@ def _add_annotate(sub):
     p.add_argument("uncalled_ids_file")
     p.add_argument("-j", "--parallel", type=int, default=1)
     p.add_argument("--ignore-hypo", action="store_true")
+    _add_mesh(p, _MESH_HELP)
     _add_device(p)
     p.set_defaults(func=cmd_annotate)
 
 
 def cmd_annotate(args):
-    caller = _caller(args.kmer_data_dir, args.ignore_hypo, args.device)
+    caller = _caller(args, args.kmer_data_dir)
     uncalled = []
     with open(args.calls_file, "w") as out:
-        for path in paths.populate_path_list([args.sequences_dir]):
+        for path in distributed.shard_inputs(
+                paths.populate_path_list([args.sequences_dir])):
             for res in caller.call_file(path):
                 if res.best.function_index == UNDEFINED_FUNCTION:
                     uncalled.append(res.seq_id)
@@ -253,13 +294,15 @@ def _add_matrix(sub):
                         "stderr (the reference vendored the algorithm for "
                         "this but never wired it: calc_natural_breaks.h, "
                         "kmers-matrix-distance.cc:6,27)")
+    _add_mesh(p, "psum-combine pair-count blocks over all local devices",
+              tp=False)
     _add_device(p)
     p.set_defaults(func=cmd_matrix)
 
 
 def cmd_matrix(args):
     res = _distance(args.data_dir, args.device).compute(
-        [fasta_io.read_fasta_batch(args.input_file)])
+        [fasta_io.read_fasta_batch(args.input_file)], mesh=_mesh(args))
     out = open(args.output_file, "w") if args.output_file else sys.stdout
     try:
         if args.natural_breaks:
@@ -293,15 +336,19 @@ def _add_matrix_folder(sub):
     p.add_argument("output_dir")
     p.add_argument("-j", "--n-threads", type=int, default=1)
     p.add_argument("--verbose", action="store_true")
+    _add_mesh(p, "psum-combine pair-count blocks over all local devices "
+                 "per file", tp=False)
     _add_device(p)
     p.set_defaults(func=cmd_matrix_folder)
 
 
 def cmd_matrix_folder(args):
+    distributed.initialize()
     md = _distance(args.data_dir, args.device)
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    for f in sorted(Path(args.input_dir).iterdir()):
+    mesh = _mesh(args)
+    for f in distributed.shard_inputs(sorted(Path(args.input_dir).iterdir())):
         if not f.is_file():
             continue
         out = out_dir / f.name
@@ -309,7 +356,7 @@ def cmd_matrix_folder(args):
             continue
         if f.stat().st_size == 0:
             continue
-        res = md.compute([fasta_io.read_fasta_batch(f)])
+        res = md.compute([fasta_io.read_fasta_batch(f)], mesh=mesh)
         formats.write_distance(out, res.rows(with_score=True),
                                with_score=True)
     return 0
@@ -340,8 +387,9 @@ def cmd_matrix_merge(args):
     if not genus_dirs:
         print(f"No valid genus directories found in {base}", file=sys.stderr)
         return 1
-    work = args.family_ids or [
-        str(i) for i in range(len(md.caller.function_index))]
+    distributed.initialize()
+    work = distributed.shard_inputs(args.family_ids or [
+        str(i) for i in range(len(md.caller.function_index))])
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     for fam in work:
@@ -390,6 +438,9 @@ def _add_serve(sub):
                         "(default 384): kernel libraries, table upload "
                         "and memory pools leave the first requests' "
                         "latency")
+    _add_mesh(p, "dispatch onto a dp x tp device mesh: queries dp-sharded, "
+                 "the signature table tp-sharded across chips (BASELINE "
+                 "service config)")
     _add_device(p)
     p.set_defaults(func=cmd_serve)
 
@@ -398,9 +449,11 @@ def cmd_serve(args):
     from ..service.server import AnnotationService, serve, \
         write_kmer_distribution
 
+    distributed.initialize()
     if args.no_listen:
         # profiling path: load the data dir with its engines and exit
-        svc = AnnotationService(args.data_dir, device=args.device)
+        svc = AnnotationService(args.data_dir, device=args.device,
+                                mesh=_mesh(args))
         if args.kmer_family_distribution:
             write_kmer_distribution(svc.table, svc.function_index,
                                     args.kmer_family_distribution)
@@ -430,9 +483,11 @@ def cmd_serve(args):
             os.dup2(devnull, fd)
     if args.pid_file:
         Path(args.pid_file).write_text(f"{os.getpid()}\n")
+    # the mesh is made after the --daemonize fork (it asks CUDA for its
+    # devices)
     serve(args.data_dir, host=args.host, port=args.port, device=args.device,
           warm_len=args.warm, listen_port_file=args.listen_port_file,
-          kmer_version=args.kmer_version)
+          kmer_version=args.kmer_version, mesh=_mesh(args))
     return 0
 
 

@@ -152,20 +152,26 @@ class FunctionCaller:
 
     # -- device path ---------------------------------------------------------
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+    def _to_device(self, a: np.ndarray, device=None) -> torch.Tensor:
+        """A host array's words as int32 on ``device`` (the caller's by
+        default)."""
+        device = self.device if device is None else device
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
-        if self.device.type == "cuda":
+        if device.type == "cuda":
             # pinned + non_blocking: the copy queues behind earlier chunks
             # instead of making the host wait for them
-            return t.pin_memory().to(self.device, non_blocking=True)
+            return t.pin_memory().to(device, non_blocking=True)
         return t
 
-    def _dispatch_device(self, sub: fasta_io.SequenceBatch) -> torch.Tensor:
-        """Enqueue one sub-batch; returns the (rows, 13) device block."""
+    def _chunk_rows(self, sub: fasta_io.SequenceBatch):
+        """One sub-batch's transfer rows on the host -> (packed_rows,
+        start_row, lengths, L, W): rows padded to a power of two from 64
+        when the chunk is under half of call_batch (a tail, or long-protein
+        splitting) so padding work stays proportional, L the 128-multiple
+        of its longest sequence, W the probe width (the smallest
+        16-multiple covering every valid window)."""
         rows = self.device_config.call_batch
         if len(sub) <= rows // 2:
-            # undersized chunk (tail, or long-protein splitting): shrink to
-            # the next power of two so padding work stays proportional
             rows = 64
             while rows < len(sub):
                 rows <<= 1
@@ -176,23 +182,31 @@ class FunctionCaller:
             L += 128
         packed_rows, start_row, lengths = kmer_pack.pack_u6_rows_host(
             sub.codes, sub.offsets, rows, L)
-        # probe width: smallest 16-multiple covering every valid window
-        # (window p is valid iff p + k <= len; max p = nat - k)
-        cfg = self.config
-        k = cfg.k
+        # window p is valid iff p + k <= len; max p = nat - k
+        k = self.config.k
         W = min(L, max(16, -(-(max(nat, k) - k + 1) // 16) * 16))
-        packed_rows, start_row, lengths = (
-            self._to_device(a) for a in (packed_rows, start_row, lengths))
+        return packed_rows, start_row, lengths, L, W
+
+    def _ignore_function(self) -> int:
+        """The function whose hits the call path drops (-1: none)."""
+        return self.hypo_index if self.config.ignore_hypothetical else -1
+
+    def _automaton(self, found, fm, lengths) -> torch.Tensor:
+        cfg = self.config
+        return automaton.device_automaton_packed(
+            found, fm, lengths, cfg.min_hits, cfg.max_gap, cfg.k,
+            mad_floor=cfg.mad_floor, len_window=cfg.len_mad_window)
+
+    def _dispatch_device(self, sub: fasta_io.SequenceBatch) -> torch.Tensor:
+        """Enqueue one sub-batch; returns the (rows, 13) device block."""
+        *host, L, W = self._chunk_rows(sub)
+        packed_rows, start_row, lengths = (self._to_device(a) for a in host)
         hi, lo, valid = kmer_pack.pack_call_windows_rows16(
             packed_rows, start_row, lengths, L, W)
         fn, geometry = probe.table_probe(self.table)
-        found, fm = fn(
-            hi, lo, valid, *self.device_tables(), **geometry,
-            ignore_function=(self.hypo_index if cfg.ignore_hypothetical
-                             else -1))
-        return automaton.device_automaton_packed(
-            found, fm, lengths, cfg.min_hits, cfg.max_gap, k,
-            mad_floor=cfg.mad_floor, len_window=cfg.len_mad_window)
+        found, fm = fn(hi, lo, valid, *self.device_tables(), **geometry,
+                       ignore_function=self._ignore_function())
+        return self._automaton(found, fm, lengths)
 
     def probe_geometry(self) -> dict:
         """The table's geometry as its probe wrappers take it (salts and
@@ -220,13 +234,14 @@ class FunctionCaller:
         return tables + aux if with_aux else tables
 
     def transfer_rows(self, codes: np.ndarray, offsets: np.ndarray,
-                      rows: int, L: int):
+                      rows: int, L: int, device=None):
         """Concatenated codes + offsets (a sub-batch's, as on the fused
-        path; L a multiple of 16) -> (t_rows, start_row, lengths) on the
-        device (pack_u6_rows_host), as the kernels that read transfer
-        rows take them."""
-        return tuple(self._to_device(a) for a in kmer_pack.pack_u6_rows_host(
-            codes, offsets, rows, L))
+        path; L a multiple of 16) -> (t_rows, start_row, lengths) on
+        ``device`` (the caller's by default; pack_u6_rows_host), as the
+        kernels that read transfer rows take them."""
+        return tuple(self._to_device(a, device)
+                     for a in kmer_pack.pack_u6_rows_host(codes, offsets,
+                                                          rows, L))
 
     def _function_meta(self):
         """Per-function multipart flags and lexicographic ranks for the
@@ -532,17 +547,7 @@ class FunctionCaller:
                      rows: int, L: int, need_aux: bool):
         """gather_hits_batch from concatenated codes + offsets: (rows, L)
         arrays."""
-        t_rows = self.transfer_rows(codes, offsets, rows, L)
-        if need_aux and isinstance(self.table, WideKmerTable):
-            out = probe.probe_wide_aux(*t_rows, L, L,
-                                       *self.device_tables(with_aux=True),
-                                       **self.probe_geometry())
-        else:
-            hi, lo, valid = kmer_pack.pack_call_windows_rows16(*t_rows, L, L)
-            fn, geometry = probe.table_probe(self.table, need_aux)
-            out = fn(hi, lo, valid, *self.device_tables(need_aux),
-                     **geometry)
-        out = [o.cpu().numpy() for o in out]
+        out = self._gather_words(codes, offsets, rows, L, need_aux)
         found, fm = out[0], out[1].view(np.uint32)
         func = (fm >> 16).astype(np.int32)
         mean = (fm & 0xFFFF).astype(np.int32)
@@ -551,6 +556,14 @@ class FunctionCaller:
         r0, r1, r2 = (o.view(np.uint32) for o in out[2:])
         avg, _f2, _mean2, median, var = unpack_value_words(r0, r1, r2)
         return found, func, mean, avg, median, var
+
+    def _gather_words(self, codes: np.ndarray, offsets: np.ndarray,
+                      rows: int, L: int, need_aux: bool) -> list:
+        """The hit probe of (rows, L) windows on the device -> [found, fm]
+        or [found, fm, r0, r1, r2] as host arrays."""
+        t_rows = self.transfer_rows(codes, offsets, rows, L)
+        return [o.cpu().numpy() for o in gather_probe(
+            self.table, t_rows, L, self.device_tables(need_aux), need_aux)]
 
     def _score_batch(self, sub, gathered,
                      keep_hits: bool) -> list[SequenceResult]:
@@ -582,6 +595,19 @@ class FunctionCaller:
 
     def call_file(self, path, keep_hits: bool = False) -> list[SequenceResult]:
         return self.call_batch(fasta_io.read_fasta_batch(path), keep_hits)
+
+
+def gather_probe(table, t_rows, L: int, tables: tuple, need_aux: bool):
+    """The hit probe of the first L windows of transfer rows against one
+    table's device words -> (found, fm[, r0, r1, r2]) tensors: on a wide
+    table with aux probe_wide_aux (it reads the rows itself), else the
+    pack and the layout's probe (ops/probe.table_probe)."""
+    if need_aux and isinstance(table, WideKmerTable):
+        return probe.probe_wide_aux(*t_rows, L, L, *tables,
+                                    **probe.table_probe(table)[1])
+    hi, lo, valid = kmer_pack.pack_call_windows_rows16(*t_rows, L, L)
+    fn, geometry = probe.table_probe(table, need_aux)
+    return fn(hi, lo, valid, *tables, **geometry)
 
 
 def unpack_value_words(r0, r1, r2):

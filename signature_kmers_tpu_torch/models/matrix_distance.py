@@ -1,4 +1,4 @@
-"""Matrix distance: shared-signature-k-mer pair counts on one device.
+"""Matrix distance: shared-signature-k-mer pair counts.
 
 The reference builds k-mer -> {sequence ids} sets and increments a nested
 map for every id pair per k-mer (ref: matrix_distance.h:45-148,
@@ -13,6 +13,13 @@ rebuilds the hit keys from the codes, keeps each (k-mer, sequence) pair
 once, and the (distinct k-mer x sequence) incidence matrix A is densified
 on the device block by block, accumulating C = sum_b A_b^T A_b with
 float32 products.
+
+On a mesh (compute(..., mesh=)) the incidence blocks are split over every
+device of the mesh, each accumulating its own partial C, and the partials
+are summed on the mesh's first device: the JAX package's psum over the
+(dp, tp) grid.  With ``mesh_caller`` set (the mesh service), the hits are
+gathered against the tp-split table by that ParallelFunctionCaller
+(gather_found_filtered) instead of this object's own caller.
 
 Filter semantics match the reference:
 - ignore_hypothetical is forced on (matrix_distance.h:88);
@@ -30,6 +37,7 @@ product.
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 
 import numpy as np
@@ -104,6 +112,9 @@ class MatrixDistance:
         self.hypo_index = self.caller.hypo_index
         self._drows = None  # the distance rows, built at first use
         self._drows_lock = threading.Lock()
+        # a ParallelFunctionCaller that gathers the hits over its mesh
+        # (the mesh service sets it), or None
+        self.mesh_caller = None
 
     def device_tables(self) -> tuple:
         """(drows, ov_drows): a wide table's distance rows on the device
@@ -129,10 +140,13 @@ class MatrixDistance:
         return dict(self.caller.probe_geometry(), slots=t.slots,
                     ov_slots=t.ov_slots, **self.filter_args())
 
-    def compute(self, batches: list[fasta_io.SequenceBatch]
+    def compute(self, batches: list[fasta_io.SequenceBatch], mesh=None
                 ) -> DistanceResult:
         """All-vs-all shared-signature-k-mer counts over the batches'
-        sequences (ids interned in order of first appearance)."""
+        sequences (ids interned in order of first appearance).  With
+        ``mesh`` the pair counting is split over every mesh device; counts
+        are exact at any device count (integer-valued float32 partial
+        sums)."""
         ids: list[str] = []
         id_to_idx: dict[str, int] = {}
         prot_sizes: dict[str, int] = {}
@@ -184,18 +198,18 @@ class MatrixDistance:
         keys = keys[first]
         seqs = seqs[first]
         _, kmer_id = np.unique(keys, return_inverse=True)
-        pairs = self._pairs(kmer_id, seqs, len(ids))
+        pairs = self._pairs(kmer_id, seqs, len(ids), mesh)
         return DistanceResult(ids=ids, prot_sizes=prot_sizes, pairs=pairs)
 
-    def _pairs(self, kmer_id, seqs, n_seqs):
+    def _pairs(self, kmer_id, seqs, n_seqs, mesh=None):
         """(i, j, count) triples with i < j, sorted.
 
         Up to config.dense_pair_limit sequences one dense (S, S)
         accumulator; past it (tile_size x tile_size) output tiles, so
         device memory stays bounded by the tile, not by S^2."""
         if n_seqs >= 8 and n_seqs > self.config.dense_pair_limit:
-            return self._pairs_tiled(kmer_id, seqs, n_seqs)
-        C = self._pair_counts(kmer_id, seqs, n_seqs)
+            return self._pairs_tiled(kmer_id, seqs, n_seqs, mesh)
+        C = self._pair_counts(kmer_id, seqs, n_seqs, mesh)
         pairs = _nonzero_pairs(C, 0, 0, upper=True)
         pairs.sort()
         return pairs
@@ -206,7 +220,13 @@ class MatrixDistance:
         """Device hit gathering with the distance filters applied on the
         device; only the (B, W) found mask returns.  W drops the padding
         windows past the sub-batch's longest sequence (the probe pays per
-        window)."""
+        window).  With mesh_caller the mask is its gather_found_filtered
+        over the mesh, (B, L)."""
+        if self.mesh_caller is not None:
+            codes, lengths = function_caller_mod.pad_bucketed(sub, len(sub))
+            return self.mesh_caller.gather_found_filtered(
+                codes, lengths, self.hypo_index,
+                self.config.len_sigma_window, self.config.zero_var_len_frac)
         k = self.config.k
         nat = int(sub.lengths.max()) if len(sub) else k
         L = function_caller_mod.bucket_length(sub)
@@ -227,14 +247,26 @@ class MatrixDistance:
                                                  **self.filter_args())
         return mask.cpu().numpy()
 
+    def _devices(self, mesh) -> list:
+        """The devices that count pairs: every cell of the mesh, or this
+        object's device."""
+        return mesh.flat if mesh is not None else [self.device]
+
     def _pair_counts(self, kmer_id: np.ndarray, seqs: np.ndarray,
-                     n_seqs: int) -> torch.Tensor:
+                     n_seqs: int, mesh=None) -> torch.Tensor:
         """Blocked incidence product C = sum_b A_b^T A_b, (S, S), on the
         device from 8 sequences on, else on the host (symmetric; only the
-        cells above the diagonal are read)."""
+        cells above the diagonal are read).  On a mesh each device takes
+        a contiguous share of the blocks and accumulates its own partial
+        C; the partials are summed on the first device."""
         n_kmers = int(kmer_id.max()) + 1 if kmer_id.size else 0
         if n_seqs == 0 or n_kmers == 0:
             return torch.zeros((0, 0), dtype=torch.int64)
+        if mesh is not None and n_seqs < 8:
+            # the JAX package's notice (its use_device is always set here)
+            print("matrix-distance: --mesh ignored (host fallback path: "
+                  f"use_device=True, n_seqs={n_seqs} < 8)", file=sys.stderr)
+            mesh = None
         order = np.argsort(kmer_id, kind="stable")
         kk = kmer_id[order]
         ss = seqs[order]
@@ -248,29 +280,41 @@ class MatrixDistance:
             np.fill_diagonal(C, 0)
             return torch.from_numpy(C)
         # the (kmer, seq) pairs are distinct, so each block's incidence is
-        # an exact 0/1 matrix; the indices go up once, the blocks are
-        # densified on the device
+        # an exact 0/1 matrix; each device's indices go up once, its
+        # blocks are densified there
         bounds = np.searchsorted(
             kk, np.arange(0, n_kmers + DENSE_BLOCK, DENSE_BLOCK)).tolist()
-        dev = self.device
-        kk_t = torch.from_numpy(kk).to(dev)
-        ss_t = torch.from_numpy(ss).to(dev)
-        A = torch.empty((DENSE_BLOCK, n_seqs), dtype=torch.float32,
-                        device=dev)
-        C = torch.zeros((n_seqs, n_seqs), dtype=torch.float32, device=dev)
+        nb = len(bounds) - 1
+        devices = self._devices(mesh)
+        per = -(-nb // len(devices))
+        C = None
         with _full_float32():
-            for bi in range(len(bounds) - 1):
-                a, b = bounds[bi], bounds[bi + 1]
-                _incidence(A, kk_t[a:b] - bi * DENSE_BLOCK, ss_t[a:b])
-                C.addmm_(A.t(), A)
+            for i, dev in enumerate(devices):
+                first, last = i * per, min((i + 1) * per, nb)
+                if first >= last:
+                    continue
+                base = bounds[first]
+                kk_t = torch.from_numpy(kk[base:bounds[last]]).to(dev)
+                ss_t = torch.from_numpy(ss[base:bounds[last]]).to(dev)
+                A = torch.empty((DENSE_BLOCK, n_seqs), dtype=torch.float32,
+                                device=dev)
+                part = torch.zeros((n_seqs, n_seqs), dtype=torch.float32,
+                                   device=dev)
+                for bi in range(first, last):
+                    a, b = bounds[bi] - base, bounds[bi + 1] - base
+                    _incidence(A, kk_t[a:b] - bi * DENSE_BLOCK, ss_t[a:b])
+                    part.addmm_(A.t(), A)
+                C = part if C is None else C.add_(part.to(C.device))
         return C
 
     def _pairs_tiled(self, kmer_id: np.ndarray, seqs: np.ndarray,
-                     n_seqs: int):
+                     n_seqs: int, mesh=None):
         """Tiled pair counting for large S: device memory is bounded by
         one (tile_size x tile_size) output tile; only the nonzero
         (i, j, count) triples of each upper-triangular tile reach the
-        host (ref regime: matrix_distance.h:128-148 nested maps)."""
+        host (ref regime: matrix_distance.h:128-148 nested maps).  On a
+        mesh each device takes a contiguous share of the k-mer blocks of
+        every tile, and the tile's partials are summed on the first."""
         sblk = self.config.tile_size
         kblock = TILE_KBLOCK
         n_kmers = int(kmer_id.max()) + 1 if kmer_id.size else 0
@@ -279,48 +323,63 @@ class MatrixDistance:
         nsb = -(-n_seqs // sblk)
         nkb = -(-n_kmers // kblock)
 
-        # per sequence block: its entries sorted by k-mer, uploaded once,
-        # and the entry range of each k-mer block
+        # per sequence block: its entries sorted by k-mer and the entry
+        # range of each k-mer block
         sb = (seqs // sblk).astype(np.int64)
         order = np.lexsort((kmer_id, sb))
         kk = kmer_id[order]
         ss = seqs[order]
         blk_start = np.searchsorted(sb[order], np.arange(nsb + 1))
-        dev = self.device
-        blocks = []
+        host = []
         for j in range(nsb):
             a, b = int(blk_start[j]), int(blk_start[j + 1])
             kj = kk[a:b]
-            cuts = np.searchsorted(kj, np.arange(nkb + 1) * kblock).tolist()
-            blocks.append((torch.from_numpy(kj).to(dev),
-                           torch.from_numpy(ss[a:b] - j * sblk).to(dev),
-                           cuts, min(sblk, n_seqs - j * sblk)))
+            host.append((kj, ss[a:b] - j * sblk,
+                         np.searchsorted(kj, np.arange(nkb + 1)
+                                         * kblock).tolist(),
+                         min(sblk, n_seqs - j * sblk)))
+        # per device: its k-mer blocks [lo, hi) and each sequence block's
+        # entries of them, uploaded once
+        per = -(-nkb // len(self._devices(mesh)))
+        shares = []
+        for r, dev in enumerate(self._devices(mesh)):
+            lo, hi = r * per, min((r + 1) * per, nkb)
+            if lo < hi:
+                shares.append((dev, lo, hi, [
+                    (torch.from_numpy(kj[c[lo]:c[hi]]).to(dev),
+                     torch.from_numpy(sj[c[lo]:c[hi]]).to(dev))
+                    for kj, sj, c, _ in host]))
 
-        def incidence(A, block, bi):
-            k_t, s_t, cuts, _ = block
-            a, b = cuts[bi], cuts[bi + 1]
+        def incidence(A, share, j, bi):
+            k_t, s_t = share[3][j]
+            c = host[j][2]
+            a, b = c[bi] - c[share[1]], c[bi + 1] - c[share[1]]
             return _incidence(A, k_t[a:b] - bi * kblock, s_t[a:b])
 
         pairs = []
         with _full_float32():
             for i in range(nsb):
                 for j in range(i, nsb):
-                    wi, wj = blocks[i][3], blocks[j][3]
-                    AI = torch.empty((kblock, wi), dtype=torch.float32,
-                                     device=dev)
-                    AJ = AI if i == j else torch.empty(
-                        (kblock, wj), dtype=torch.float32, device=dev)
-                    C = torch.zeros((wi, wj), dtype=torch.float32,
-                                    device=dev)
-                    for bi in range(nkb):
-                        # a k-mer block that either side misses adds 0
-                        if (blocks[i][2][bi] == blocks[i][2][bi + 1]
-                                or blocks[j][2][bi] == blocks[j][2][bi + 1]):
-                            continue
-                        incidence(AI, blocks[i], bi)
-                        if i != j:
-                            incidence(AJ, blocks[j], bi)
-                        C.addmm_(AI.t(), AJ)
+                    wi, wj = host[i][3], host[j][3]
+                    C = None
+                    for share in shares:
+                        dev = share[0]
+                        AI = torch.empty((kblock, wi), dtype=torch.float32,
+                                         device=dev)
+                        AJ = AI if i == j else torch.empty(
+                            (kblock, wj), dtype=torch.float32, device=dev)
+                        part = torch.zeros((wi, wj), dtype=torch.float32,
+                                           device=dev)
+                        for bi in range(share[1], share[2]):
+                            # a k-mer block that either side misses adds 0
+                            if (host[i][2][bi] == host[i][2][bi + 1]
+                                    or host[j][2][bi] == host[j][2][bi + 1]):
+                                continue
+                            incidence(AI, share, i, bi)
+                            if i != j:
+                                incidence(AJ, share, j, bi)
+                            part.addmm_(AI.t(), AJ)
+                        C = part if C is None else C.add_(part.to(C.device))
                     pairs.extend(_nonzero_pairs(C, i * sblk, j * sblk,
                                                 upper=i == j))
         pairs.sort()

@@ -32,10 +32,54 @@ PACKED_WORDS = 1 + 3 * REC_CAP
 UNDEF = 0xFFFF
 
 
+def _pass_a(found, func, min_hits: int, max_gap: int):
+    """Pass A, one row at a time over its hits in order, in Python ints
+    (on the host whatever the device) -> n_recs (B,) int32 and the first
+    REC_CAP records' function, first and last position (int32, 0 in empty
+    slots) and a valid mask, (B, REC_CAP), on found's device."""
+    B = found.shape[0]
+    recs = np.zeros((3, B, REC_CAP), np.int32)
+    n_recs = np.zeros(B, np.int32)
+    found_np, func_np = found.cpu().numpy(), func.cpu().numpy()
+    for b in range(B):
+        pos = np.flatnonzero(found_np[b])
+        cur, n, first, lpos = UNDEF, 0, 0, -(1 << 30)
+        lfunc, l2func, l2pos = UNDEF, UNDEF, 0
+        out = []
+        for p, f in zip(pos.tolist(), func_np[b, pos].tolist()):
+            # 1. gap flush (before append; ref tcc:295-301)
+            if n > 0 and lpos + max_gap < p:
+                if n >= min_hits:
+                    out.append((cur, first, lpos))
+                    if n >= 2 and l2func != cur and l2func == lfunc:
+                        cur, first, n = lfunc, l2pos, 2
+                    else:
+                        n = 0
+                else:
+                    n = 0
+            if n == 0:  # 2. empty buffer adopts the hit's function
+                cur, first = f, p
+            l2func, l2pos, lfunc, lpos = lfunc, lpos, f, p  # 3. append
+            n += 1
+            # 4. same-function-pair switch (ref tcc:320-327)
+            if n > 1 and cur != f and l2func == f:
+                out.append((cur, first, p))
+                cur, first, n = f, l2pos, 2
+        if n >= min_hits:  # tail flush (ref tcc:336-337)
+            out.append((cur, first, lpos))
+        n_recs[b] = len(out)
+        for r, rec in enumerate(out[:REC_CAP]):
+            recs[:, b, r] = rec
+    valid = np.arange(REC_CAP)[None, :] < n_recs[:, None]
+    return tuple(torch.from_numpy(a).to(found.device)
+                 for a in (n_recs, *recs, valid))
+
+
 def device_automaton_reference(found, fm, seqlen, min_hits: int,
                                max_gap: int, k: int, mad_floor: float = 30.0,
                                len_window: float = 2.0):
-    """Plain version of the automaton (the XLA program's arithmetic).
+    """Plain version of the automaton (the XLA program's arithmetic; pass
+    A walks each row's hits in order on the host).
 
     found: (B, W) bool; fm: (B, W) int32 (function<<16 | mean);
     seqlen: (B,) int32.  Returns a dict of (B, REC_CAP) tensors:
@@ -48,62 +92,8 @@ def device_automaton_reference(found, fm, seqlen, min_hits: int,
     mean = (fm64 & 0xFFFF).to(torch.int32)
     where = torch.where
 
-    # ---- pass A: sequential over positions, vectorized over sequences ----
-    z = torch.zeros(B, dtype=torch.int32, device=dev)
-    cur, n, first, lpos = z + UNDEF, z, z, z - (1 << 30)
-    lfunc, l2func, l2pos, nrec = z + UNDEF, z + UNDEF, z, z
-    streams = []  # per position: r1 (gap flush), r2 (switch) records
-    # a position where no row has a hit changes no state and emits no
-    # record (every step below is masked by h), so only the others run
-    for p in torch.nonzero(found.any(dim=0)).flatten().tolist():
-        h, f = found[:, p], func[:, p]
-        # 1. gap flush (before append; ref tcc:295-301)
-        gap = h & (n > 0) & (lpos + max_gap < p)
-        gap_flush = gap & (n >= min_hits)
-        r1 = (gap_flush, cur, first, lpos)
-        retain1 = gap_flush & (n >= 2) & (l2func != cur) & (l2func == lfunc)
-        cur = where(retain1, lfunc, cur)
-        first = where(retain1, l2pos, first)
-        n = where(gap, where(retain1, 2, 0), n)
-        nrec = nrec + gap_flush
-        # 2. empty buffer adopts the hit's function (ref tcc:302-305)
-        fresh = h & (n == 0)
-        cur = where(fresh, f, cur)
-        first = where(fresh, p, first)
-        # 3. append
-        l2func, l2pos = where(h, lfunc, l2func), where(h, lpos, l2pos)
-        lfunc, lpos = where(h, f, lfunc), where(h, p, lpos)
-        n = where(h, n + 1, n)
-        # 4. same-function-pair switch (ref tcc:320-327)
-        switch = h & (n > 1) & (cur != f) & (l2func == lfunc)
-        r2 = (switch, cur, first, z + p)
-        cur = where(switch, f, cur)
-        first = where(switch, l2pos, first)
-        n = where(switch, 2, n)
-        nrec = nrec + switch
-        streams.append(r1 + r2)
-
-    # tail flush (ref tcc:336-337)
-    tail_valid = n >= min_hits
-    n_recs = (nrec + tail_valid).to(torch.int32)
-
-    # ---- the first REC_CAP records of the (B, 2W+1) stream ---------------
-    def cat(i, tail):
-        cols = [s[j] for s in streams for j in (i, i + 4)] + [tail]
-        return torch.stack(cols, dim=1)
-
-    v = cat(0, tail_valid)
-    c = torch.cumsum(v.to(torch.int32), dim=1)
-    slot1 = torch.arange(1, REC_CAP + 1, device=dev)[None, :, None]
-    oh = v[:, None, :] & (c[:, None, :] == slot1)
-    rec_valid = oh.any(dim=2)
-
-    def pick(field):
-        return (field[:, None, :] * oh).sum(dim=2).to(torch.int32)
-
-    rec_fI = pick(cat(1, cur))
-    rec_ps = pick(cat(2, first))
-    rec_pe = pick(cat(3, lpos))
+    n_recs, rec_fI, rec_ps, rec_pe, rec_valid = _pass_a(found, func,
+                                                        min_hits, max_gap)
 
     # ---- pass B: per-record statistics via broadcast masks ---------------
     pos = torch.arange(W, device=dev, dtype=torch.int32)[None, None, :]

@@ -119,6 +119,13 @@ def fmix32_t(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def hash_kmer_t(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """torch hash_kmer: 32-bit words in any integer dtype -> int64 hash."""
+    hi = hi.to(torch.int64) & _M32
+    lo = lo.to(torch.int64) & _M32
+    return fmix32_t(hi ^ ((fmix32_t(lo) + _GOLDEN) & _M32))
+
+
 def perm48_t(hi: torch.Tensor, lo: torch.Tensor, salt: int):
     """torch perm48: int64 tensors in, int64 (L, R) 24-bit halves out."""
     L = hi.to(torch.int64) & _M24

@@ -680,6 +680,74 @@ def probe_cmph_aux(hi, lo, valid, g, vfm, vrec, *, seed: int, r: int,
 probe_cmph_aux.launches = 0
 
 
+# -- the linear-probing table: one ShardedKmerTable shard ---------------------
+
+_EMPTY = 0xFFFF_FFFF  # an empty slot's key words
+
+
+def probe_table_reference(key_hi, key_lo, v0, v1, v2, qhi, qlo,
+                          max_probes: int):
+    """Plain version of probe_table: the JAX package's lock-step rounds
+    (ops/probe.py: probe_table), one slot per query a round until each has
+    hit its key or an empty slot, at most max(max_probes, 1) rounds (int64
+    arithmetic, any device)."""
+    mask = key_hi.shape[0] - 1
+    qh = qhi.to(torch.int64) & _M32
+    ql = qlo.to(torch.int64) & _M32
+    cur = hashing.hash_kmer_t(qh, ql) & mask
+    done = torch.zeros(qh.shape, dtype=torch.bool, device=qh.device)
+    found = done.clone()
+    words = [torch.zeros_like(qh) for _ in range(3)]
+    for _ in range(max(max_probes, 1)):
+        khi = key_hi[cur].to(torch.int64) & _M32
+        klo = key_lo[cur].to(torch.int64) & _M32
+        hit = (khi == qh) & (klo == ql) & ~done
+        empty = (khi == _EMPTY) & ~done
+        words = [torch.where(hit, v[cur].to(torch.int64) & _M32, w)
+                 for v, w in zip((v0, v1, v2), words)]
+        found |= hit
+        done |= hit | empty
+        if bool(done.all()):
+            break
+        cur = (cur + 1) & mask
+    return (found, *(hashing.to_i32(w) for w in words))
+
+
+def probe_table(key_hi, key_lo, v0, v1, v2, qhi, qlo, max_probes: int):
+    """Probe a linear-probing table for packed query keys.
+
+    key_hi, key_lo, v0, v1, v2: the table's int32 words (bit containers of
+    uint32), S slots each with S a power of two, an empty slot's key words
+    0xFFFFFFFF; qhi, qlo: int32 query words of any equal shape;
+    max_probes: the table's longest chain.  -> (found bool, r0, r1, r2
+    int32): r* the matched slot's v0..v2 where found, else 0."""
+    tables = dict(key_hi=key_hi, key_lo=key_lo, v0=v0, v1=v1, v2=v2)
+    S = key_hi.shape[0] if key_hi.dim() == 1 else 0
+    for name, t in tables.items():
+        cl.check(t, name, torch.int32, (S,))
+    if S == 0 or S & (S - 1) or S > 1 << 32:
+        raise ValueError(f"key_hi: a power-of-two slot count expected, got "
+                         f"shape {tuple(key_hi.shape)}")
+    shape = tuple(qhi.shape)
+    cl.check(qhi, "qhi", torch.int32)
+    cl.check(qlo, "qlo", torch.int32, shape)
+    if not cl.on_cuda(qhi, qlo, *tables.values()):
+        return probe_table_reference(key_hi, key_lo, v0, v1, v2, qhi, qlo,
+                                     max_probes)
+    outs = _outputs(shape, qhi.device, 3)
+    cl.launch("probe_table",
+              [key_hi.data_ptr(), key_lo.data_ptr(), v0.data_ptr(),
+               v1.data_ptr(), v2.data_ptr(), S, qhi.data_ptr(),
+               qlo.data_ptr(), qhi.numel(), max_probes,
+               *(o.data_ptr() for o in outs)],
+              qhi.device)
+    probe_table.launches += 1
+    return outs
+
+
+probe_table.launches = 0
+
+
 # -- one probe per layout -----------------------------------------------------
 
 

@@ -1,0 +1,138 @@
+"""Table-parallel (tp) linear-probing table.
+
+Keys are partitioned by the top bits of their slot hash (owner_of) into
+independent per-shard open-addressing tables of one common size, stacked
+(n_shards, S).  Every dp row of the mesh probes its own queries against
+every shard, one shard per device of the row; since a key lives in one
+shard only, at most one shard reports a hit for a query and writes
+nonzero words, so the row's results combine exactly by OR on its first
+device (the JAX package combines them with a psum over tp).
+
+This replaces the reference's always-fully-resident table
+(ref: cmph_kmer.h:71-83; the reference has no table sharding at all).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from ..core.config import TableConfig
+from ..ops import hashing, probe as probe_ops
+from ..table.kmer_table import KmerTable
+
+
+def owner_of(hi, lo, n_shards: int) -> np.ndarray:
+    """Key-owner shard = the top log2(n_shards) bits of the slot hash."""
+    h = hashing.hash_kmer(hi, lo)
+    if n_shards == 1:
+        return np.zeros_like(h, dtype=np.uint32)
+    bits = int(n_shards).bit_length() - 1
+    return h >> np.uint32(32 - bits)
+
+
+def combine_tp(parts, device) -> tuple:
+    """The tp shards' outputs of one dp row (a tuple of tensors each)
+    combined on ``device``: bool masks and value words alike by OR, exact
+    because at most one shard found the key and the others wrote zeros."""
+    return tuple(functools.reduce(torch.bitwise_or,
+                                  (p[k].to(device) for p in parts))
+                 for k in range(len(parts[0])))
+
+
+def split_rows(n: int, ndp: int) -> list:
+    """(start, end) of each dp row's share of n rows: contiguous blocks of
+    ceil(n / ndp), as a dp-sharded array of n rows padded to a multiple of
+    ndp splits (the last blocks may be short or empty)."""
+    step = -(-n // ndp) if n else 0
+    return [(min(d * step, n), min((d + 1) * step, n)) for d in range(ndp)]
+
+
+@dataclasses.dataclass
+class ShardedKmerTable:
+    """Stacked per-shard tables: arrays of shape (n_shards, S_shard)."""
+
+    key_hi: np.ndarray
+    key_lo: np.ndarray
+    v0: np.ndarray
+    v1: np.ndarray
+    v2: np.ndarray
+    n_items: int
+    max_probes: int
+
+    @property
+    def n_shards(self) -> int:
+        return int(self.key_hi.shape[0])
+
+    @staticmethod
+    def build(hi, lo, v0, v1, v2, n_shards: int,
+              config: TableConfig = TableConfig()) -> "ShardedKmerTable":
+        assert n_shards & (n_shards - 1) == 0, "n_shards must be a power of 2"
+        hi = np.asarray(hi, dtype=np.uint32)
+        lo = np.asarray(lo, dtype=np.uint32)
+        v0, v1, v2 = (np.asarray(v) for v in (v0, v1, v2))
+        owner = owner_of(hi, lo, n_shards)
+        counts = np.bincount(owner, minlength=n_shards)
+        shard_size = max(config.min_size, hashing.next_pow2(
+            int(counts.max() / config.load_factor) + 1))
+        sub_cfg = dataclasses.replace(config, min_size=shard_size)
+        parts = []
+        for s in range(n_shards):
+            m = owner == s
+            t = KmerTable.build(hi[m], lo[m], v0[m], v1[m], v2[m], sub_cfg)
+            assert t.size == shard_size
+            parts.append(t)
+        return ShardedKmerTable(
+            *(np.stack([getattr(t, k) for t in parts])
+              for k in ("key_hi", "key_lo", "v0", "v1", "v2")),
+            n_items=int(hi.shape[0]),
+            max_probes=max([1] + [t.max_probes for t in parts]))
+
+    @staticmethod
+    def from_table(table, n_shards: int,
+                   config: TableConfig = TableConfig()) -> "ShardedKmerTable":
+        return ShardedKmerTable.build(*table.occupied(), n_shards, config)
+
+    def to_mesh(self, mesh) -> list:
+        """The shards on the mesh: cells[d][t] = shard t's five word
+        arrays as int32 tensors on device (d, t); shard t goes to every
+        device of tp column t.  The mesh's tp size must be n_shards."""
+        if mesh.shape["tp"] != self.n_shards:
+            raise ValueError(f"a table of {self.n_shards} shards on a mesh "
+                             f"of tp {mesh.shape['tp']}")
+        words = (self.key_hi, self.key_lo, self.v0, self.v1, self.v2)
+        return [[tuple(torch.from_numpy(np.ascontiguousarray(w[t])
+                                        .view(np.int32)).to(dev)
+                       for w in words)
+                 for t, dev in enumerate(row)]
+                for row in mesh.devices]
+
+
+def probe_sharded(mesh, cells, qhi, qlo, max_probes: int):
+    """Probe a tp-sharded table with dp-split flat queries.
+
+    cells: ShardedKmerTable.to_mesh(mesh); qhi, qlo: (M,) int32 tensors
+    (bit containers of the uint32 words).  Row d of the mesh takes the
+    d-th contiguous block of the queries (split_rows), each of its devices
+    probes the block against its shard (ops/probe.probe_table), and the
+    row's results are combined on its first device.  -> (found bool, r0,
+    r1, r2 int32), (M,) each, on the mesh's first device, in query
+    order."""
+    out_dev = mesh.devices[0][0]
+    rows = []
+    for (a, b), row, cell_row in zip(split_rows(qhi.shape[0],
+                                                mesh.shape["dp"]),
+                                     mesh.devices, cells):
+        if a == b:
+            continue
+        parts = [probe_ops.probe_table(*tabs, qhi[a:b].to(dev),
+                                       qlo[a:b].to(dev), max_probes)
+                 for dev, tabs in zip(row, cell_row)]
+        rows.append(combine_tp(parts, out_dev))
+    if not rows:
+        return probe_ops.probe_table(*cells[0][0], qhi.to(out_dev),
+                                     qlo.to(out_dev), max_probes)
+    return tuple(torch.cat([r[k] for r in rows]) for k in range(4))

@@ -1,4 +1,4 @@
-"""Batched annotation service on one device.
+"""Batched annotation service on one device or one process's mesh.
 
 Service-layer equivalent of the reference's (vestigial) kmers-server
 (endpoint surface modeled on kser_request.cc:273-489).  Front-end is
@@ -28,6 +28,10 @@ Request handlers run on the event loop's executor threads, so several
 call FunctionCaller.call_batch at once; the caller serializes its lazy
 table uploads and its counters, and every thread issues its work on the
 device's default stream.
+
+With a mesh (serve --mesh) the caller is a ParallelFunctionCaller over the
+(dp, tp) mesh, /lookup gathers hits over it, and /matrix gathers its mask
+through it and counts pairs over every mesh device.
 """
 
 from __future__ import annotations
@@ -197,13 +201,17 @@ def write_kmer_distribution(table, function_index: list[str], path) -> None:
 
 class AnnotationService:
     def __init__(self, data_dir, config: Config = Config(), device="cuda",
-                 kmer_version: str | None = None):
+                 kmer_version: str | None = None, mesh=None):
         """device: where the caller and matrix distance run ("cuda" runs
         the kernels and raises without CUDA; "cpu" their plain
-        versions)."""
+        versions).  mesh: a parallel/mesh.Mesh to dispatch onto instead
+        (queries split over dp, the table over tp, by a
+        ParallelFunctionCaller); /add rebuilds the sharded tables under
+        the writer lock and swaps the snapshot."""
         self.config = config
         self.data_dir = data_dir
         self.device = device
+        self.mesh = mesh
         self.kmer_version = kmer_version
         table, self.function_index = pipeline.load_data_dir(
             data_dir, config)
@@ -218,11 +226,22 @@ class AnnotationService:
         self.mappings: dict[str, object] = {}
 
     def _make_engines(self, table) -> _Engines:
-        caller = FunctionCaller(table, self.function_index, self.config.call,
-                                self.config.device, device=self.device)
+        if self.mesh is not None:
+            from ..parallel.parallel_caller import ParallelFunctionCaller
+
+            caller = ParallelFunctionCaller(
+                table, self.function_index, self.config.call,
+                self.config.device, mesh=self.mesh)
+        else:
+            caller = FunctionCaller(table, self.function_index,
+                                    self.config.call, self.config.device,
+                                    device=self.device)
         distance = MatrixDistance(table, self.function_index,
                                   self.config.distance, self.config.device,
                                   device=self.device)
+        if self.mesh is not None:
+            # /matrix gathers its hits against the tp-split table
+            distance.mesh_caller = caller
         return _Engines(table, caller, distance)
 
     # single-snapshot convenience views (one attribute read each — fine
@@ -526,7 +545,7 @@ class AnnotationService:
     def matrix_text(self, body: bytes) -> str:
         batch = fasta_io.SequenceBatch.from_records(
             fasta_io.iter_fasta(body))
-        res = self.distance.compute([batch])
+        res = self.distance.compute([batch], mesh=self.mesh)
         out = io.StringIO()
         for s1, s2, count, score in res.rows(with_score=True):
             out.write(f"{s1}\t{s2}\t{count}\t{formats.cxx_num(score)}\n")
@@ -623,12 +642,12 @@ async def _handle(service: AnnotationService, stop_event: asyncio.Event,
 async def serve_async(data_dir, host="127.0.0.1", port=6100,
                       config: Config = Config(), device="cuda",
                       warm_len: int = 0, listen_port_file=None,
-                      kmer_version=None, on_ready=None):
+                      kmer_version=None, on_ready=None, mesh=None):
     """Serve until GET /quit.  on_ready(service, port), when given, is
     called once the server listens: a harness in the same process reaches
     the live service (its batcher and engines) through it."""
     service = AnnotationService(data_dir, config, device=device,
-                                kmer_version=kmer_version)
+                                kmer_version=kmer_version, mesh=mesh)
     if warm_len:
         t0 = time.perf_counter()
         n = service.warm(warm_len)
@@ -662,8 +681,8 @@ async def serve_async(data_dir, host="127.0.0.1", port=6100,
 
 def serve(data_dir, host="127.0.0.1", port=6100, config: Config = Config(),
           device="cuda", warm_len: int = 0, listen_port_file=None,
-          kmer_version=None):
+          kmer_version=None, mesh=None):
     asyncio.run(serve_async(data_dir, host, port, config, device=device,
                             warm_len=warm_len,
                             listen_port_file=listen_port_file,
-                            kmer_version=kmer_version))
+                            kmer_version=kmer_version, mesh=mesh))

@@ -1,11 +1,14 @@
 """StoredKmerData value packing shared by the table layouts, and the
-legacy linear-probing store, which is read only to be converted.
+legacy linear-probing store.
 
 The JAX package's first layout was a linear-probing table (five uint32
 words per slot: key_hi, key_lo, v0, v1, v2; format "skt-v1").  A data dir
 that holds one is converted to the cuckoo layout on load
-(models/pipeline.load_data_dir), as the JAX package does, so this module
-only reads and probes it on the host (table-tool's info, dump and verify).
+(models/pipeline.load_data_dir), as the JAX package does, so a data dir's
+store is only read and probed on the host here (table-tool's info, dump
+and verify).  KmerTable.build places keys in the same layout for the
+mesh's linear shards (parallel/sharded_table.py), whose device probe is
+ops/probe.probe_table.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..core.config import TableConfig
 from ..ops import hashing
 from .wide_table import key_order
 
@@ -52,6 +56,50 @@ class KmerTable:
     @property
     def mask(self) -> int:
         return self.size - 1
+
+    @staticmethod
+    def build(hi, lo, v0, v1, v2, config: TableConfig = TableConfig()
+              ) -> "KmerTable":
+        """Place keys by rounds of slot claiming (the JAX package's
+        KmerTable.build, array for array): each round every unplaced key
+        tries its current slot, the first contender (in input order) for
+        an empty slot takes it, and the others move one slot on.  The
+        round count is the longest chain, max_probes."""
+        hi = np.asarray(hi, dtype=np.uint32)
+        lo = np.asarray(lo, dtype=np.uint32)
+        v0 = np.asarray(v0, dtype=np.uint32)
+        v1 = np.asarray(v1, dtype=np.uint32)
+        v2 = np.asarray(v2, dtype=np.uint32)
+        n = hi.shape[0]
+        size = max(config.min_size,
+                   hashing.next_pow2(int(n / config.load_factor) + 1))
+        mask = np.uint32(size - 1)
+        key_hi = np.full(size, EMPTY, dtype=np.uint32)
+        key_lo = np.full(size, EMPTY, dtype=np.uint32)
+        words = [np.zeros(size, dtype=np.uint32) for _ in range(3)]
+        pending = np.arange(n)
+        cur = hashing.hash_kmer(hi, lo) & mask
+        max_probes = 0
+        while pending.size:
+            max_probes += 1
+            if max_probes > max(config.max_probes_cap, size):
+                raise RuntimeError("hash table build did not converge")
+            slots = cur[pending]
+            empty = key_hi[slots] == EMPTY
+            # np.unique's first index: the first pending contender
+            _, first_idx = np.unique(slots, return_index=True)
+            place = np.zeros(pending.size, dtype=bool)
+            place[first_idx] = True
+            place &= empty
+            idx = pending[place]
+            s = slots[place]
+            key_hi[s] = hi[idx]
+            key_lo[s] = lo[idx]
+            for w, v in zip(words, (v0, v1, v2)):
+                w[s] = v[idx]
+            pending = pending[~place]
+            cur[pending] = (cur[pending] + np.uint32(1)) & mask
+        return KmerTable(key_hi, key_lo, *words, n, max_probes)
 
     @staticmethod
     def load(path) -> "KmerTable":

@@ -10,8 +10,10 @@ windows per thread.  The build's kernels take a warp per sequence
 (extraction, which holds a sequence's codes in chunks) and tiles of
 sorted entries with a thread per small k-mer group and a warp per large
 one (selection): build_rows, select_windows and select_tile_edges; the
-build's corpus at the reference's scale on disk: build_corpus.  Also the exact host route of the distance mask
-(distance_found_host), for checks.
+build's corpus at the reference's scale on disk: build_corpus.  The
+linear probe takes a thread per query: linear_cases (chains that wrap past
+the last slot, walks cut at max_probes).  Also the exact host route of the
+distance mask (distance_found_host), for checks.
 Nothing on the main path imports this module.
 """
 
@@ -287,6 +289,52 @@ def cmph_cases(n: int, seed: int):
                    rng.integers(0, 1 << 24, q).astype(np.uint32),
                    rng.random(q) < 0.9)))
     return cases
+
+
+def linear_cases(seed: int):
+    """(label, table, qhi, qlo, max_probes) cases of the linear probe
+    (ops/probe.probe_table) on KmerTable.build layouts of 1024 slots:
+    chains at load 0.6 with members, aliens and a query of two
+    0xFFFFFFFF words (it "hits" an empty slot); the same walks cut at 1
+    slot and at 0 (taken as 1); keys crowded onto the last slots, whose
+    chains wrap past slot 1023 to slot 0; and a table with no key."""
+    from .ops import hashing
+    from .table.kmer_table import KmerTable
+
+    rng = np.random.default_rng(seed)
+
+    def keys(n):
+        k = np.unique(rng.integers(0, 1 << 48, 2 * n, dtype=np.int64))
+        k = rng.permutation(k)[:n]
+        return ((k >> 24).astype(np.uint32),
+                (k & 0xFFFFFF).astype(np.uint32))
+
+    def values(n):
+        return [rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(
+            np.uint32) for _ in range(3)]
+
+    def queries(t, hi, lo, n_alien):
+        ah, al = keys(n_alien)
+        qh = np.concatenate([hi, ah, [0xFFFFFFFF]]).astype(np.uint32)
+        ql = np.concatenate([lo, al, [0xFFFFFFFF]]).astype(np.uint32)
+        order = rng.permutation(qh.shape[0])
+        return qh[order], ql[order]
+
+    hi, lo = keys(600)
+    t = KmerTable.build(hi, lo, *values(600))
+    qh, ql = queries(t, hi, lo, 501)
+    # keys whose home slot is one of the last four: their chains wrap
+    ch, cl = keys(200_000)
+    last = (hashing.hash_kmer(ch, cl) & np.uint32(1023)) >= 1020
+    wh, wl = ch[last][:24], cl[last][:24]
+    w = KmerTable.build(wh, wl, *values(wh.shape[0]))
+    wqh, wql = queries(w, wh, wl, 40)
+    empty = KmerTable.build(hi[:0], lo[:0], *values(0))
+    return [("chains", t, qh, ql, t.max_probes),
+            ("cut at 1 slot", t, qh, ql, 1),
+            ("max_probes 0", t, qh, ql, 0),
+            ("wrapping chains", w, wqh, wql, w.max_probes),
+            ("no key", empty, qh, ql, empty.max_probes)]
 
 
 def distance_lengths(B: int, seed: int):

@@ -145,12 +145,23 @@ EDGE_W = 304  # not a multiple of the kernel's 32-window step
 @pytest.fixture(scope="module")
 def edge_rows():
     names, found, fm, lens = kernel_cases.automaton_rows(EDGE_W, n_random=16)
-    func = (fm >> 16).astype(np.int32)
-    mean = (fm & 0xFFFF).astype(np.int32)
-    jout = ja.device_automaton(found, func, mean, lens, CFG.min_hits,
-                               CFG.max_gap, CFG.k, mad_floor=CFG.mad_floor,
+    B = found.shape[0]
+    assert B <= PAD_B
+    # the JAX side runs in _run_both's program: the rows padded to
+    # (PAD_B, 512) with windows and rows that hold no hit (one compile
+    # fewer); the port's plain version runs at (B, EDGE_W) as they are
+    pf = np.zeros((PAD_B, 512), bool)
+    pf[:B, :EDGE_W] = found
+    pfm = np.zeros((PAD_B, 512), np.uint32)
+    pfm[:B, :EDGE_W] = fm
+    plens = np.full(PAD_B, 300, np.int32)
+    plens[:B] = lens
+    jout = ja.device_automaton(pf, (pfm >> 16).astype(np.int32),
+                               (pfm & 0xFFFF).astype(np.int32), plens,
+                               CFG.min_hits, CFG.max_gap, CFG.k,
+                               mad_floor=CFG.mad_floor,
                                len_window=CFG.len_mad_window)
-    jout = {key: np.asarray(v) for key, v in jout.items()}
+    jout = {key: np.asarray(v)[:B] for key, v in jout.items()}
     jpacked = np.asarray(ja.pack_records(jout, lens))
     args = [torch.from_numpy(a) for a in (found, fm.view(np.int32), lens)]
     params = (CFG.min_hits, CFG.max_gap, CFG.k, CFG.mad_floor,

@@ -100,7 +100,12 @@ def _build_argv(fixture_dir, flags, otus):
 @pytest.fixture(scope="module")
 def builds(fixture_dir, tmp_path_factory):
     """Each flag set once through both CLIs, with recall:
-    {flags: {"jax"|"torch": (data dir, rc, stdout, BuildResult)}}."""
+    {flags: {"jax"|"torch": (data dir, rc, stdout, BuildResult)}}.  skt
+    builds through its device route in the "p2-stats" set and through its
+    host route (--host-only) in the others, which writes the device
+    route's artifacts (tests/test_host_only.py) without an XLA compile;
+    the port builds through its device path (--device cpu) except in the
+    "host-only" flag set."""
     root = tmp_path_factory.mktemp("torch_build")
     otus = root / "otus"
     otus.write_text("12\t1000.7\n12\t1001.7\n34\t1002.7\n")
@@ -109,7 +114,9 @@ def builds(fixture_dir, tmp_path_factory):
         argv = _build_argv(fixture_dir, flags, otus)
         out[name] = {}
         for side, cli, module, extra in (
-                ("jax", jax_cli, jax_pipeline, []),
+                ("jax", jax_cli, jax_pipeline,
+                 [] if name == "p2-stats" or "--host-only" in flags
+                 else ["--host-only"]),
                 ("torch", torch_cli, torch_pipeline, ["--device", "cpu"])):
             kd = root / f"{side}-{name}"
             results = []

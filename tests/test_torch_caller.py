@@ -37,9 +37,11 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def data_dir(fixture_dir, tmp_path_factory):
     out = tmp_path_factory.mktemp("torch_kd") / "kd"
+    # --host-only: the device build's artifacts (tests/test_host_only.py)
+    # without compiling the XLA selection
     jax_cli(["build-signatures", "-D", str(fixture_dir / "Annotations"),
              "-F", str(fixture_dir / "Seqs"), "--kmer-data-dir", str(out),
-             "--final-kmers", "final.kmers", "--no-recall"])
+             "--final-kmers", "final.kmers", "--no-recall", "--host-only"])
     return out
 
 

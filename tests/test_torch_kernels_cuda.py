@@ -471,3 +471,28 @@ def test_probe_cmph(dev):
         assert 0 < int(found.sum())
         if table.mph.r == 5:  # the hand-made store: misses under valid
             assert int((win[2] & ~found).sum()) > 0
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_probe_table(dev, case):
+    """The linear probe (one thread per query) against its plain version:
+    chains, walks cut at max_probes, wrapping chains, an empty table, an
+    odd query count; every output word, hits and misses alike."""
+    label, t, qh, ql, max_probes = kernel_cases.linear_cases(seed=8)[case]
+    tabs = [_as_int32(a, dev) for a in (t.key_hi, t.key_lo, t.v0, t.v1,
+                                        t.v2)]
+    q = (_as_int32(qh, dev), _as_int32(ql, dev))
+    before = probe.probe_table.launches
+    got = probe.probe_table(*tabs, *q, max_probes)
+    assert probe.probe_table.launches == before + 1
+    want = probe.probe_table_reference(*tabs, *q, max_probes)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), label
+    found = want[0].cpu().numpy()
+    if t.n_items:
+        assert 0 < found.sum() < found.size
+    if label == "cut at 1 slot":  # walks past their first slot are cut
+        assert found.sum() < probe.probe_table_reference(
+            *tabs, *q, t.max_probes)[0].sum().item()
+    with pytest.raises(ValueError):
+        probe.probe_table(*(x[:1000] for x in tabs), *q, max_probes)

@@ -5,7 +5,12 @@ tests/test_pallas.py runs it), and pack_call_windows_rows16 (transfer rows
 straight to windows) against the JAX package's expand_rows16 followed by
 each of the two.  Tolerance: exact equality; hi/lo are compared with the
 Pallas kernel only under the call mask (undefined elsewhere there), with
-the XLA program everywhere, and the mask everywhere."""
+the XLA program everywhere, and the mask everywhere.
+
+Also the ops-level helpers beside them: the port's hashing (torch,
+int64-held words) against the JAX package's numpy hashing, and the
+port's copy of the native host runtime (FASTA reader, wide placement)
+against its numpy and Python specs and the JAX package's reader."""
 
 import numpy as np
 import pytest
@@ -14,10 +19,16 @@ import torch
 import jax.numpy as jnp
 
 from signature_kmers_tpu.core import alphabet
+from signature_kmers_tpu.io.fasta import read_fasta_batch as jax_read
+from signature_kmers_tpu.ops import hashing as jh
 from signature_kmers_tpu.ops import kmer_pack as jk
 from signature_kmers_tpu.ops.pallas_pack import pack_call_windows_pallas
 from signature_kmers_tpu_torch import testing
+from signature_kmers_tpu_torch.io import fasta
+from signature_kmers_tpu_torch.ops import hashing as th
 from signature_kmers_tpu_torch.ops import kmer_pack as tk
+from signature_kmers_tpu_torch.runtime import host
+from signature_kmers_tpu_torch.table import wide_table
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -153,3 +164,109 @@ def test_pack_call_windows_rejects_bad_width():
     for L, W in ((32, 48), (32, 0), (32, 24), (40, 16)):
         with pytest.raises(ValueError, match="multiples of 16"):
             tk.pack_call_windows_rows16(*rows, L, W)
+
+
+# ---- hashing: torch (int64-held words) and numpy against the JAX package
+
+EDGE = np.array([0, 1, 0xFFFFFF, 0x800000, 0x7FFFFF, 0xABCDEF], np.uint32)
+
+
+def _keys(seed, n=4096):
+    rng = np.random.default_rng(seed)
+    hi = np.concatenate([EDGE, rng.integers(0, 1 << 24, n, dtype=np.uint32)])
+    lo = np.concatenate([EDGE[::-1], rng.integers(0, 1 << 24, n,
+                                                  dtype=np.uint32)])
+    return hi, lo
+
+
+def _t(a):
+    return torch.from_numpy(a.astype(np.int64))
+
+
+@pytest.mark.parametrize("bits", list(range(17, 31)))
+def test_perm48_bucket_tag_matches_jax(bits):
+    hi, lo = _keys(bits)
+    salt = 0x51DE_0000 + bits * 0x0100_0193
+    L, R = jh.perm48(hi, lo, salt)
+    b, t = jh.wide_bucket_tag(L, R, bits)
+    Lt, Rt = th.perm48_t(_t(hi), _t(lo), salt)
+    bt, tt = th.wide_bucket_tag_t(Lt, Rt, bits)
+    np.testing.assert_array_equal(Lt.numpy(), L.astype(np.int64))
+    np.testing.assert_array_equal(Rt.numpy(), R.astype(np.int64))
+    np.testing.assert_array_equal(bt.numpy(), b.astype(np.int64))
+    np.testing.assert_array_equal(tt.numpy(), t.astype(np.int64))
+    # the numpy copies in the port are the JAX package's arithmetic
+    np.testing.assert_array_equal(th.perm48(hi, lo, salt)[0], L)
+    np.testing.assert_array_equal(th.wide_bucket_tag(L, R, bits)[1], t)
+
+
+def test_fmix32_hash_and_inverse_match_jax():
+    hi, lo = _keys(3)
+    x = np.concatenate([hi, lo, np.array([0xFFFFFFFF, 0x80000000],
+                                         np.uint32)])
+    np.testing.assert_array_equal(th.fmix32_t(_t(x)).numpy(),
+                                  jh.fmix32(x).astype(np.int64))
+    np.testing.assert_array_equal(th.fmix32(x), jh.fmix32(x))
+    np.testing.assert_array_equal(th.hash_kmer(hi, lo), jh.hash_kmer(hi, lo))
+    np.testing.assert_array_equal(th.hash_kmer_t(_t(hi), _t(lo)).numpy(),
+                                  jh.hash_kmer(hi, lo).astype(np.int64))
+    L, R = th.perm48(hi, lo, 77)
+    back = th.perm48_inv(L, R, 77)
+    np.testing.assert_array_equal(back[0], hi)
+    np.testing.assert_array_equal(back[1], lo)
+    assert th.next_pow2(1000) == jh.next_pow2(1000) == 1024
+
+
+@pytest.mark.parametrize("bits", [16, 31])
+def test_bits_out_of_range_raise(bits):
+    with pytest.raises(ValueError):
+        th.wide_bucket_tag_t(_t(EDGE), _t(EDGE), bits)
+
+
+# ---- the native host runtime against its specs and the JAX reader ----
+
+FASTA = (b">a1 first protein [G1]\r\nMKLV*XA\nxxQQ\n\n>  \nMMM\n>b2\tdef\n"
+         b"*ACD\nEF1GH\n>c3\n>d4 last\nWWWWWWWWW")
+
+
+def test_native_runtime_builds():
+    assert host.available()
+
+
+@pytest.mark.parametrize("source", ["crafted", "corpus"])
+def test_read_fasta_batch_matches_spec_and_jax(source, tmp_path,
+                                               fixture_dir):
+    if source == "crafted":
+        paths = [tmp_path / "q.fa"]
+        paths[0].write_bytes(FASTA)
+    else:
+        paths = sorted((fixture_dir / "Seqs").iterdir())[:3]
+    for path in paths:
+        got = fasta.read_fasta_batch(path)
+        for want in (fasta.SequenceBatch.from_file(path), jax_read(path)):
+            np.testing.assert_array_equal(got.codes, want.codes)
+            np.testing.assert_array_equal(got.offsets, want.offsets)
+            assert got.ids == want.ids and got.deflines == want.deflines
+
+
+@pytest.mark.parametrize("bits,slots", [(17, 2), (18, 4)])
+def test_native_wide_placement_matches_numpy(bits, slots):
+    rng = np.random.default_rng(bits)
+    keys = np.unique(rng.integers(0, 1 << 48, 150_000, dtype=np.uint64))
+    hi = (keys >> np.uint64(24)).astype(np.uint32)
+    lo = (keys & np.uint64(0xFFFFFF)).astype(np.uint32)
+    v = [rng.integers(0, 1 << 32, keys.shape[0], dtype=np.uint64).astype(
+        np.uint32) for _ in range(3)]
+    got = host.build_wide_place(hi, lo, *v, bits, 0x51DE0000, slots)
+    want = wide_table._place_tagged_np(hi, lo, *v, bits, 0x51DE0000, slots)
+    assert want[2].shape[0] > 0  # some keys overflow their bucket
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_native_placement_rejects_duplicates():
+    hi = np.array([5, 5], np.uint32)
+    lo = np.array([9, 9], np.uint32)
+    z = np.zeros(2, np.uint32)
+    with pytest.raises(ValueError, match="duplicate"):
+        host.build_wide_place(hi, lo, z, z, z, 17, 1, 2)

@@ -81,7 +81,12 @@ def stores(fixture_dir, tmp_path_factory):
             "-F", str(fixture_dir / "Seqs"), "--final-kmers", "final.kmers",
             "--table-layout", "cuckoo"]
     cuckoo = root / "cuckoo"
-    rc, _ = _cli(jax_cli, argv + ["--kmer-data-dir", str(cuckoo)])
+    # skt's host route (--host-only) writes the device build's artifacts
+    # (tests/test_host_only.py) without compiling the XLA selection; the
+    # port builds through its device path (argv) in
+    # test_cuckoo_build_matches_jax
+    rc, _ = _cli(jax_cli, argv + ["--kmer-data-dir", str(cuckoo),
+                                  "--host-only"])
     assert rc == 0
     hi, lo, v0, v1, v2 = JaxBucket.load(cuckoo / "kmer_data").occupied()
     stats = JaxLinear.unpack_values(v0, v1, v2)
