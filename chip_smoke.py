@@ -166,7 +166,29 @@ Phases, in order; any failure exits non-zero:
    (seed 3): kernel 7 against its plain version, held, the selection's
    time, and the kept ids of a sparse-id numbering against the plain
    version's.
-3g. the build's reference stores (run after 3d, on its corpus):
+3i. the sharded build (run after 3d, on its corpus and against its
+   build): pipeline.run_build(mesh=make_mesh(tp=1, devices=[cuda:0] * 4),
+   device="cuda") with recall, dp 4 on four cells of the one card; it
+   fails unless kernels 6 and 7 launched 4 times each and kernels 1-3 in
+   the recall, if any plain version ran, and unless the kept set, the
+   kept sequence ids, distinct_functions and distinct_signatures equal
+   3d's, and every file of the data dir equals 3d's (kmer_data.npz array
+   by array); every kernel-6/7 call is held bit for bit to its plain
+   version.  Then process_kmers alone on one device, at dp 4 and at dp 2
+   (the four cells at tp 2), each equal to 3d; the dp-4 process_kmers in
+   its parts (host pack, upload, kernel 6, the routing: owner hash,
+   counts, stable order, scatter; the exchange, the sorts, kernel 7, the
+   merge on the first cell, the fetch, the host finalize; synchronized
+   after each) beside the routing's bound (48 bytes a window);
+   build-signatures --mesh --no-recall through the CLI (every local
+   device at the default tp: 1 x 1 on one card) on a 10-genome slice
+   (30,000 sequences), its data dir equal to the same build without
+   --mesh; sharded_score_cutoff of 20M seeded two-mode float32 scores on
+   the dp-4 mesh and on 1 x 1, equal to each other and to numpy's route
+   (the same float32 bins by np.bincount, the same DP).  Prints the
+   seconds of each, run_build's phases, peak device memory and the
+   phase's wall time.
+3g. the build's reference stores (run after 3i, on 3d's corpus):
    build-signatures through the CLI on the card with recall and
    --nudb-file, --perfect-hash, --perfect-hash-data (absolute paths),
    --otu-file (the 100 genomes in 25 OTUs) and --checkpoint; it fails
@@ -190,7 +212,8 @@ Phases, in order; any failure exits non-zero:
    files' sizes, peak device memory and each step's seconds.
 4. one JSON line of per-kernel numbers (launches from one run of each
    kernel's own path, named in launches_of; mesh_launches: each kernel's
-   launches in phase 3h's runs), the card line, and the contract line
+   launches in phase 3h's runs and in 3i's run_build), the card line,
+   and the contract line
    {"ok": true, "device": {...}} last.
 
 Exits non-zero without a result when CUDA is unavailable or when run from
@@ -561,8 +584,10 @@ def build_phase(card: str, report: dict, differences, plain_of: dict,
                 call_wrappers: dict, work: Path, corpus) -> dict:
     """Phase 3d (module docstring): the port's build of the reference's
     300K-sequence corpus (corpus: its fasta and definitions dirs) on the
-    card, with recall, into work/kd.  Adds the two build kernels' entries
-    to report; -> the launches of the build's run."""
+    card, with recall, into work/kd, which it leaves for phase 3i.  Adds
+    the two build kernels' entries to report; -> (the launches of the
+    build's run, the build for phase 3i: its data dir, kept set,
+    statistics, phase seconds and concatenated corpus)."""
     import shutil
 
     import numpy as np
@@ -683,8 +708,11 @@ def build_phase(card: str, report: dict, differences, plain_of: dict,
             fail("build: the kept set differs from the host route")
         split = process_kmers_split(res.builder, codes, sids, fidx, plen,
                                     n_kept, card)
-    finally:
+        one = dict(kd=kd, kept=res.kept, stats=res.builder.stats,
+                   timings=res.timings, seqs=(codes, sids, fidx, plen))
+    except BaseException:
         shutil.rmtree(kd, ignore_errors=True)
+        raise
 
     # times on the build path's own inputs
     dev = ext_args[0].device
@@ -820,7 +848,7 @@ def build_phase(card: str, report: dict, differences, plain_of: dict,
     report["build_select_runs"].update(random20m_select_ms=rand_ms,
                                        random20m_kernel_held_ms=rand_kernel_ms,
                                        random20m_bound_ms=rand_bound)
-    return launched
+    return launched, one
 
 
 def select_held_ms(args, out) -> float:
@@ -946,6 +974,367 @@ def process_kmers_split(builder, codes, sids, fidx, plen, n_kept: int,
                   f"{k} {v:.4f}" for k, v in parts.items())
               + f"; sum {sum(parts.values()):.4f} [{card}]")
     return parts
+
+
+MESH_CLI_GENOMES = 10       # phase 3i: the CLI's slice (30,000 sequences)
+CUTOFF_SCORES = 20_000_000  # phase 3i: sharded_score_cutoff's scores
+KEPT_FIELDS = ("hi", "lo", "avg_from_end", "function_index", "mean",
+               "median", "var")
+
+
+def data_dir_files(kd: Path) -> dict:
+    """Every file of a data dir: its bytes, kmer_data.npz as its arrays
+    (a zip member carries its write time)."""
+    import numpy as np
+
+    out = {}
+    for p in sorted(kd.rglob("*")):
+        if not p.is_file():
+            continue
+        rel = str(p.relative_to(kd))
+        if p.suffix == ".npz":
+            with np.load(p) as z:
+                out[rel] = {k: (z[k].dtype.str, z[k].tobytes())
+                            for k in z.files}
+        else:
+            out[rel] = p.read_bytes()
+    return out
+
+
+def mesh_build_phase(card: str, differences, plain_of: dict,
+                     call_wrappers: dict, work: Path, corpus, one: dict,
+                     device: str = "cuda",
+                     n_scores: int = CUTOFF_SCORES) -> dict:
+    """Phase 3i (module docstring): the sharded build on four cells of
+    the card, against phase 3d's one-device build (one: its data dir,
+    kept set, statistics and concatenated corpus).  Works under
+    work/mesh.  device="cpu" rehearses it with the plain versions (no
+    launch is then required, and no call is held).  -> this phase's
+    numbers, with each run's launches under "launches"."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from signature_kmers_tpu_torch.cli.main import main as cli
+    from signature_kmers_tpu_torch.models import pipeline
+    from signature_kmers_tpu_torch.models import signature_builder as sb
+    from signature_kmers_tpu_torch.ops import build_extract, build_select
+    from signature_kmers_tpu_torch.parallel import build_step
+    from signature_kmers_tpu_torch.parallel import mesh as mesh_mod
+    from signature_kmers_tpu_torch.stats import natural_breaks
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    build_wrappers = {
+        "build_extract_windows": build_extract.build_extract_windows,
+        "build_select_runs": build_select.build_select_runs}
+    wrappers = dict(call_wrappers, **build_wrappers)
+    fasta_dir, defs_dir = corpus
+    root = work / "mesh"
+    root.mkdir()
+    out = {"card": card, "launches": {}}
+    mesh4 = mesh_mod.make_mesh(tp=1, devices=[dev] * 4)
+    codes, sids, fidx, plen = one["seqs"]
+    threshold = 0.8
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def need(label, launched, plain, counts):
+        """counts: {kernel: its launches, or None for at least one}."""
+        print(f"mesh build {label} launches: {launched}; plain versions "
+              f"that ran: {({k: v for k, v in plain.items() if v})}")
+        if not on_card:
+            return
+        for name, n in counts.items():
+            if launched[name] <= 0 or n is not None and launched[name] != n:
+                fail(f"phase 3i: {name} launched {launched[name]} times on "
+                     f"the {label}, not {n or 'at least once'}")
+        if any(plain.values()):
+            fail(f"phase 3i: the {label} ran plain versions: {plain}")
+
+    def same_as_one(label, kept, stats):
+        bad = [f for f in KEPT_FIELDS
+               if not np.array_equal(getattr(kept, f),
+                                     getattr(one["kept"], f))]
+        want = one["stats"]
+        same = {"kept sequence ids": stats.seqs_with_a_signature
+                == want.seqs_with_a_signature,
+                "distinct_functions": stats.distinct_functions
+                == want.distinct_functions,
+                "distinct_signatures": stats.distinct_signatures
+                == want.distinct_signatures}
+        print(f"mesh build {label}: {len(kept)} kept against phase 3d's "
+              f"{len(one['kept'])}; columns differing {bad}; "
+              + ", ".join(f"{k} {'equal' if v else 'differ'}"
+                          for k, v in same.items()))
+        if bad or not all(same.values()):
+            fail(f"phase 3i: the {label} differs from phase 3d's build")
+
+    # ---- run_build on the dp-4 mesh, with recall -----------------------------
+    kd = root / "kd"
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset()
+    with counting_plain_versions() as plain, \
+            keeping_kernel_calls(tuple(build_wrappers)) as kept_calls:
+        t0 = time.perf_counter()
+        res = pipeline.run_build(
+            definition_dirs=[defs_dir], fasta_dirs=[fasta_dir],
+            kmer_data_dir=kd, final_kmers="final.kmers", device=device,
+            mesh=mesh4)
+        sync()
+        build_s = time.perf_counter() - t0
+    launched = {n: w.launches for n, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    print(f"mesh build: run_build on {len(mesh4.flat)} cells of one "
+          f"device (dp 4, tp 1), {len(res.kept)} kept, in {build_s:.4f} s "
+          f"with recall; peak device memory {peak:.3f} GiB (with the kept "
+          f"kernel calls' tensors alive) [{card}]")
+    for name, sec in res.timings.items():
+        print(f"mesh build phase {name}: {sec:.4f} s [{card}]")
+    need("dp-4 build", launched, plain,
+         {"build_extract_windows": 4, "build_select_runs": 4,
+          "pack_call_windows_rows16": None, "probe_wide": None,
+          "device_automaton_packed": None})
+    out["launches"]["build"] = launched
+    out.update(build_s=build_s, build_phases=res.timings, build_peak_gib=peak)
+    same_as_one("run_build (dp 4)", res.kept, res.builder.stats)
+    t0 = time.perf_counter()
+    got, want = data_dir_files(kd), data_dir_files(one["kd"])
+    differ = sorted(k for k in set(got) | set(want)
+                    if got.get(k) != want.get(k))
+    n_recall = sum(v.count(b"\n") for k, v in got.items()
+                   if k.startswith("recall.report.d/"))
+    print(f"mesh build: {len(got)} files of the data dir against phase "
+          f"3d's ({time.perf_counter() - t0:.1f} s; kmer_data.npz array by "
+          f"array): differing {differ}; {n_recall} recall mismatch lines")
+    if differ or n_recall or "final.kmers" not in got:
+        fail(f"phase 3i: the mesh build's files differ from phase 3d's: "
+             f"{differ}")
+    del got, want, res
+    if on_card:
+        for name in build_wrappers:
+            calls = kept_calls[name]
+            n = 0
+            for a, kw, o in calls:
+                n += differences(name, o, plain_of[name](*a, **kw))[0]
+            print(f"mesh build: {name} held to its plain version on the "
+                  f"path's own {len(calls)} calls: {n} words differ")
+            if n:
+                fail(f"phase 3i: {name} differs from its plain version on "
+                     f"the mesh build ({n})")
+    del kept_calls
+    shutil.rmtree(kd, ignore_errors=True)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- process_kmers alone: one device, dp 4, dp 2 (tp 2) ------------------
+    pk_s = {}
+    for label, mesh, n in (
+            ("one device", None, 1),
+            ("dp 4 (4 cells, tp 1)", mesh4, 4),
+            ("dp 2 (4 cells, tp 2)",
+             mesh_mod.make_mesh(tp=2, devices=[dev] * 4), 2)):
+        b = sb.SignatureBuilder(device=device)
+        b._seq_chunks = [(codes, sids, fidx, plen)]
+        reset()
+        sync()
+        with counting_plain_versions() as plain:
+            t0 = time.perf_counter()
+            kept = b.process_kmers(mesh=mesh)
+            sync()
+            pk_s[label] = time.perf_counter() - t0
+        need(f"process_kmers {label}", {k: w.launches
+                                        for k, w in wrappers.items()},
+             plain, {"build_extract_windows": n, "build_select_runs": n})
+        same_as_one(f"process_kmers {label}", kept, b.stats)
+        del b, kept
+    print("mesh build: process_kmers of the 300K corpus (host s, "
+          "synchronized): " + ", ".join(f"{k} {v:.4f}"
+                                        for k, v in pk_s.items())
+          + f"; phase 3d's run_build process_kmers "
+          f"{one['timings']['process_kmers(select+fetch)']:.4f} [{card}]")
+    out["process_kmers_s"] = pk_s
+
+    # ---- the dp-4 process_kmers in its parts ---------------------------------
+    parts = {}
+    t = time.perf_counter()
+
+    def part(name):
+        nonlocal t
+        sync()
+        now = time.perf_counter()
+        parts[name] = now - t
+        t = now
+
+    cells = mesh_mod.dp_cells(mesh4)
+    packed, starts, meta = build_step.pack_corpus_sharded(codes, sids, fidx,
+                                                          plen, 4)
+    part("pack (host)")
+    ups = [build_step.upload_shard(c, packed[s], starts[s], meta[s, 0],
+                                   meta[s, 1]) for s, c in enumerate(cells)]
+    part("upload")
+    Bg = starts.shape[1]
+    wins = [build_step.extract_shard(*u, s * Bg) for s, u in enumerate(ups)]
+    part("kernel 6")
+    del ups
+    n_win = sum(w[0].shape[0] for w in wins)
+    owners = [build_step.owners(w[0], 4) for w in wins]
+    part("route: owner hash")
+    counts = [torch.bincount(o, minlength=4).tolist() for o in owners]
+    part("route: counts (read)")
+    orders = [torch.sort(o, stable=True).indices for o in owners]
+    part("route: stable order")
+    del owners
+    buckets = []
+    for w, order, cnt in zip(wins, orders, counts):
+        bounds = np.concatenate([[0], np.cumsum(cnt)])
+        buckets.append([tuple(x[order[a:b]] for x in w)
+                        for a, b in zip(bounds[:-1], bounds[1:])])
+    part("route: scatter")
+    del wins, orders
+    received = build_step.exchange(buckets, cells)
+    part("exchange")
+    del buckets
+    sorted_w = [build_select.sort_windows(*r) for r in received]
+    part("sorts")
+    del received
+    sel = [build_select.build_select_runs(k1s, p_s, k2s, s_s,
+                                          4 * Bg, threshold)
+           for k1s, p_s, s_s, k2s in sorted_w]
+    part("kernel 7")
+    del sorted_w
+    outs = build_step.ShardedSelection([w for w, _ in sel],
+                                       [f for _, f in sel],
+                                       meta[:, 2].reshape(-1))
+    merged = build_step.merge_words(outs.words, cells[0])
+    part("merge on the first cell")
+    words = merged.cpu().numpy()
+    kept_ids = build_step.kept_sids(outs)
+    part("fetch (words, flags)")
+    b = sb.SignatureBuilder(device=device)
+    kept = b._finalize_host(sb.kept_from_words(words), kept_ids)
+    part("host finalize")
+    same_as_one("process_kmers dp 4 in parts", kept, b.stats)
+    del sel, outs, merged, words, kept, b
+    route_s = sum(v for k, v in parts.items() if k.startswith("route"))
+    # the routing's least bytes: each window's 24 bytes read once and
+    # written once at its owner (the exchange on one card is a copy of
+    # the same bytes); the sorts' as in phase 3d
+    route_bound = bound_ms(48 * n_win, 0)[0]
+    sort_bound = bound_ms((24 + 32 + 16) * n_win, 0)[0]
+    print(f"mesh build: dp-4 process_kmers in its parts (host s, "
+          f"synchronized after each; {n_win} windows): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+          + f"; sum {sum(parts.values()):.4f}; the routing (hash, counts, "
+          f"order, scatter) {route_s * 1e3:.4f} ms and the exchange "
+          f"{parts['exchange'] * 1e3:.4f} ms, each against a bound of "
+          f"{route_bound:.4f} ms (48 B a window); the sorts against "
+          f"{sort_bound:.4f} ms [{card}]")
+    out.update(split_s=parts, n_windows=n_win, route_ms=route_s * 1e3,
+               exchange_ms=parts["exchange"] * 1e3, route_bound_ms=route_bound,
+               sort_bound_ms=sort_bound)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- build-signatures --mesh through the CLI on a 10-genome slice --------
+    slice_dir = root / "slice"
+    slice_dir.mkdir()
+    for p in sorted(fasta_dir.iterdir())[:MESH_CLI_GENOMES]:
+        (slice_dir / p.name).symlink_to(p)
+    cli_s, dirs = {}, {}
+    for label, flags in (("--mesh", ["--mesh"]), ("one device", [])):
+        dirs[label] = root / f"cli_{len(dirs)}"
+        reset()
+        sync()
+        with counting_plain_versions() as plain, \
+                contextlib.redirect_stdout(io.StringIO()) as stdout:
+            t0 = time.perf_counter()
+            rc = cli(["build-signatures", "-D", str(defs_dir), "-F",
+                      str(slice_dir), "--kmer-data-dir", str(dirs[label]),
+                      "--final-kmers", "final.kmers", "--no-recall",
+                      "--device", device, *flags])
+            sync()
+            cli_s[label] = time.perf_counter() - t0
+        # the CLI's mesh: every local device at the default tp
+        ndp = (mesh_mod.make_mesh(devices=mesh_mod.local_devices(device))
+               .shape["dp"] if flags else 1)
+        need(f"CLI {label}", {k: w.launches for k, w in wrappers.items()},
+             plain, {"build_extract_windows": ndp, "build_select_runs": ndp})
+        print(f"mesh build: build-signatures {label} --no-recall on "
+              f"{MESH_CLI_GENOMES} genomes: rc {rc} in {cli_s[label]:.4f} s;"
+              f" stdout {stdout.getvalue().splitlines()} [{card}]")
+        if rc:
+            fail(f"phase 3i: build-signatures {label} exited {rc}")
+    got, want = (data_dir_files(dirs[k]) for k in ("--mesh", "one device"))
+    differ = sorted(k for k in set(got) | set(want)
+                    if got.get(k) != want.get(k))
+    print(f"mesh build: the CLI's --mesh data dir against the one-device "
+          f"one: {len(got)} files, differing {differ}")
+    if differ or not got:
+        fail(f"phase 3i: build-signatures --mesh differs: {differ}")
+    out["cli_s"] = cli_s
+
+    # ---- sharded_score_cutoff on 20M two-mode scores ------------------------
+    srng = np.random.default_rng(17)
+    scores = np.concatenate([srng.normal(0.1, 0.01, n_scores // 2),
+                             srng.normal(0.9, 0.01, n_scores - n_scores // 2)
+                             ]).astype(np.float32)
+    srng.shuffle(scores)
+    cut, cut_s = {}, {}
+    for label, mesh in (("dp 4", mesh4),
+                        ("1 x 1", mesh_mod.make_mesh(devices=[dev]))):
+        sync()
+        t0 = time.perf_counter()
+        cut[label] = natural_breaks.sharded_score_cutoff(mesh, scores)
+        sync()
+        cut_s[label] = time.perf_counter() - t0
+    # the numpy route: the same float32 bins, np.bincount, the same DP
+    t0 = time.perf_counter()
+    gmin, gmax = float(scores.min()), float(scores.max())
+    f32 = np.float32
+    idx = np.clip(((scores - f32(gmin)) / f32(gmax - gmin)
+                   * f32(4096)).astype(np.int32), 0, 4095)
+    hist = np.bincount(idx, minlength=4096)
+    edges = np.linspace(gmin, gmax, 4097).astype(np.float32)
+    centers = ((edges[:-1] + edges[1:]) / 2)[hist > 0]
+    w = hist[hist > 0].astype(np.int64)
+    cut["numpy"] = float(centers[natural_breaks._fisher_breaks(
+        centers, w, 2)[-1]])
+    cut_s["numpy"] = time.perf_counter() - t0
+    np_hist = np.histogram(scores, bins=edges)[0]
+    moved = int(np.abs(np_hist - hist).sum()) // 2
+    x = torch.from_numpy(scores[:n_scores // 4]).to(dev)
+    hist_ms = (time_ms(lambda: natural_breaks._dp_histogram(
+        x, gmin, gmax, 4096), 5) if on_card else float("nan"))
+    hist_bound = bound_ms(4 * x.shape[0] + 8 * 4096, 0)[0]
+    del x
+    print(f"mesh build: sharded_score_cutoff of {n_scores} two-mode scores:"
+          f" " + ", ".join(f"{k} {v!r} in {cut_s[k]:.4f} s"
+                           for k, v in cut.items())
+          + f"; np.histogram on the same edges puts {moved} scores in "
+          f"another bin; one cell's histogram of {n_scores // 4} scores "
+          f"{hist_ms:.4f} ms against a bound of {hist_bound:.4f} ms "
+          f"[{card}]")
+    if not cut["dp 4"] == cut["1 x 1"] == cut["numpy"]:
+        fail(f"phase 3i: the sharded cutoffs differ: {cut}")
+    out.update(cutoff=cut, cutoff_s=cut_s, cutoff_hist_ms=hist_ms,
+               cutoff_hist_bound_ms=hist_bound, cutoff_np_histogram_moved=moved)
+    shutil.rmtree(root, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"mesh build phase: {out['wall_s']:.1f} s wall [{card}]")
+    return out
 
 
 STORE_QUERIES = 16384   # phase 3g: corpus sequences called on each store
@@ -3612,10 +4001,20 @@ def main() -> int:
               f"genomes ({BUILD_LOWER} in lower case), written in "
               f"{time.perf_counter() - t0:.1f} s")
         t_phase = time.perf_counter()
-        build_launches = build_phase(card, report, differences, plain_of,
-                                     all_wrappers, work, corpus)
+        build_launches, one = build_phase(card, report, differences,
+                                          plain_of, all_wrappers, work,
+                                          corpus)
         print(f"build phase: {time.perf_counter() - t_phase:.1f} s wall "
               f"[{card}]")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- phase 3i: the sharded build on four cells ---------------------
+        mesh_build = mesh_build_phase(card, differences, plain_of,
+                                      all_wrappers, work, corpus, one)
+        shutil.rmtree(one["kd"], ignore_errors=True)
+        del one
+        print(json.dumps({"mesh_build": mesh_build}))
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3672,6 +4071,7 @@ def main() -> int:
                              "probe_table"])
     # each kernel's launches in phase 3h's runs, per run
     mesh_launches = {}
+    mesh_out["launches"]["build (3i)"] = mesh_build["launches"]["build"]
     for run, counts in mesh_out["launches"].items():
         for name, n in counts.items():
             mesh_launches.setdefault(name, {})[run] = n

@@ -17,9 +17,9 @@ Each verb runs as one process: on one device, or with ``--mesh`` (and
 ``--tp``) on a (dp, tp) mesh of every local device of ``--device``'s type
 (parallel/mesh.py).  ``--device cuda`` (the default) runs the kernels,
 ``--device cpu`` their plain PyTorch versions; table-tool and setup-build
-are host code and take no ``--device``.  Multi-process runs
-(SKT_COORDINATOR) and ``build-signatures --mesh`` are not ported yet and
-fail.
+are host code and take no ``--device``.  ``build-signatures --mesh``
+shards the selection over the mesh's dp rows (parallel/build_step.py).
+Multi-process runs (SKT_COORDINATOR) are not ported yet and fail.
 """
 
 from __future__ import annotations
@@ -114,17 +114,13 @@ def _add_build(sub):
     p.add_argument("--table-layout", default="wide", choices=LAYOUTS,
                    help="signature-table layout (see table/wide_table.py "
                         "and table/bucket_table.py)")
-    _add_mesh(p, "shard the selection pass over all local devices (not "
-                 "ported yet: exits with an error)", tp=False)
+    _add_mesh(p, "shard the selection pass over all local devices (dp "
+                 "shards, k-mers routed to their owner shard)", tp=False)
     _add_device(p)
     p.set_defaults(func=cmd_build)
 
 
 def cmd_build(args):
-    if args.mesh:
-        print("build-signatures: --mesh is not ported yet (the sharded "
-              "build); run without it", file=sys.stderr)
-        raise SystemExit(2)
     cfg = Config()
     cfg = dataclasses.replace(
         cfg, build=dataclasses.replace(
@@ -151,6 +147,7 @@ def cmd_build(args):
         config=cfg,
         use_device=not args.host_only,
         device=args.device,
+        mesh=_mesh(args),
     )
     print(f"kept {len(res.function_index)} functions")
     print(f"Kept {len(res.kept)} kmers")

@@ -90,10 +90,14 @@ def run_build(
     perfect_hash=None,
     perfect_hash_data=None,
     otu_file=None,
+    mesh=None,
 ) -> BuildResult:
     """Build on ``device`` ("cuda" runs the kernels and raises without
     CUDA, "cpu" their plain versions); use_device=False (``--host-only``)
-    selects on the host with numpy and recalls on the CPU.
+    selects on the host with numpy and recalls on the CPU.  mesh (a
+    parallel.mesh.Mesh) runs the selection sharded over its dp rows, as
+    the JAX package does whatever use_device says; the recall stays on
+    ``device`` (the CPU with use_device=False).
 
     checkpoint keeps each file's extraction in <kmer_data_dir>/build.ckpt.d
     (a rerun resumes from it); nudb_file, perfect_hash (and
@@ -156,7 +160,7 @@ def run_build(
     with _phase("extract_kmers"):
         builder.extract_kmers(deleted, checkpoint_dir=ckpt_dir)
     with _phase("process_kmers(select+fetch)"):
-        kept = builder.process_kmers()
+        kept = builder.process_kmers(mesh=mesh)
 
     if kmer_data_dir:
         # distinct_functions table (ref: kmers-build-signatures.cc:230-236)

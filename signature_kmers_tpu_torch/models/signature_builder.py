@@ -17,7 +17,9 @@ signature_build.tcc:184-213).  Here:
 
 With device="cpu" the same path runs each kernel's plain PyTorch version.
 ``--host-only`` and ``--p2-stats`` take the numpy twins
-(_extract_windows_np, _select_np) instead.
+(_extract_windows_np, _select_np) instead.  process_kmers(mesh=) runs the
+same kernels per dp shard, with each window routed to its k-mer's owner
+shard between them (parallel/build_step.py).
 
 Determinism: the reference's output depends on TBB range splits (a k-mer's
 group can be split across threads); the sorted pipeline is exactly
@@ -477,13 +479,42 @@ class SignatureBuilder:
 
     # -- selection ---------------------------------------------------------
 
-    def process_kmers(self) -> KeptKmerArrays:
-        """Selection pass over the collected sequences."""
+    def process_kmers(self, mesh=None) -> KeptKmerArrays:
+        """Selection pass over the collected sequences; with a mesh, the
+        sequences are split over its dp shards and each window routed to
+        its k-mer's owner shard (parallel/build_step.py), on the mesh's
+        devices whatever use_device says (the JAX package's choice)."""
         chunks = self._seq_chunks
         self._seq_chunks = []
         if not chunks:
             return _empty_kept()
+        if mesh is not None and self.config.p2_stats:
+            # p2 fidelity mode is host-only: the P-square recurrence is
+            # specified in float64 (FIDELITY.md); the JAX package's warning
+            import logging
+            logging.getLogger(__name__).warning(
+                "--p2-stats forces the host selection path; the mesh is "
+                "ignored for this build (P-square fidelity requires "
+                "float64, unavailable on TPU)")
+            mesh = None
+        if mesh is not None:
+            cat = self._concat_chunks(chunks)
+            if cat is None:
+                return _empty_kept()
+            return self._select_sharded(mesh, *cat)
         return self._select_from_seqs(chunks)
+
+    def _select_sharded(self, mesh, codes, sids, fidxs,
+                        plens) -> KeptKmerArrays:
+        """Mesh selection: kernel 6 per dp shard, the k-mer routing, the
+        sorts and kernel 7 per owner shard, the host finalize."""
+        from ..parallel import build_step
+
+        outs = build_step.build_step_from_seqs(
+            mesh, codes, sids, fidxs, plens,
+            threshold=self.config.signature_threshold)
+        kept = KeptKmerArrays(**build_step.finalize_sharded(outs))
+        return self._finalize_host(kept, build_step.kept_sids(outs))
 
     def _concat_chunks(self, chunks):
         """Concatenate raw chunks, dropping sequences too short for a

@@ -87,3 +87,9 @@ def dp_size(mesh: Mesh) -> int:
 
 def tp_size(mesh: Mesh) -> int:
     return mesh.shape["tp"]
+
+
+def dp_cells(mesh: Mesh) -> list:
+    """The first device of each dp row, where the row's one-device work
+    runs."""
+    return [row[0] for row in mesh.devices]

@@ -515,8 +515,10 @@ def test_build_resumes_from_checkpoint(builds, fixture_dir, tmp_path,
 
 # -- what the port leaves out -------------------------------------------------
 
-@pytest.mark.parametrize("flag", [["--mesh"]])
+@pytest.mark.parametrize("flag", [["--mesh", "--tp", "2"]])
 def test_unported_build_flags_are_errors(flag, tmp_path):
+    """build-signatures takes --mesh at the default tp, as skt does; --tp
+    is no flag of it (the sharded build: tests/test_torch_mesh_build.py)."""
     with pytest.raises(SystemExit) as e, \
             contextlib.redirect_stderr(io.StringIO()):
         torch_cli(["build-signatures", "--kmer-data-dir", str(tmp_path),

@@ -197,7 +197,7 @@ def test_default_device_without_cuda_raises(data_dir):
 
 
 def test_later_slice_features_raise(data_dir, tmp_path):
-    # every store kind opens now (tests/test_torch_layouts.py); a dir with
+    # every store kind opens now (tests/test_torch_tables.py); a dir with
     # no store raises as the JAX package's load_data_dir does
     with pytest.raises(FileNotFoundError, match="No kmer table"):
         pipeline.load_data_dir(tmp_path)

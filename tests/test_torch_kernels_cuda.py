@@ -390,6 +390,45 @@ def test_build_at_scale(dev):
     assert words.shape[0] > 0 and int(flags.sum()) > 0
 
 
+def test_process_kmers_mesh(dev):
+    """process_kmers on a mesh of four cells of the card (dp 4) against
+    one device: 12,000 sequences of 60 families (half of each a shared
+    core), sparse ids; kept arrays and statistics equal, kernels 6 and 7
+    launched once per dp shard."""
+    from signature_kmers_tpu_torch.core import alphabet
+    from signature_kmers_tpu_torch.models.signature_builder import \
+        SignatureBuilder
+    from signature_kmers_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(6)
+    aa = alphabet.encode_seq(alphabet.AA20)
+    n, fams = 12_000, 60
+    plens = rng.integers(8, 600, n).astype(np.int32)
+    fidxs = rng.integers(0, fams, n).astype(np.int32)
+    cores = aa[rng.integers(0, 20, (fams, 300))]
+    seqs = [np.concatenate([cores[f][:p // 2],
+                            aa[rng.integers(0, 20, p - p // 2)]])
+            for f, p in zip(fidxs, plens)]
+    chunk = (np.concatenate(seqs).astype(np.uint8),
+             (np.arange(n) // 3000 * 100_000 + np.arange(n) % 3000)
+             .astype(np.int32), fidxs, plens)
+    one = SignatureBuilder(device=dev)
+    one._seq_chunks.append(chunk)
+    want = one.process_kmers()
+    mesh = SignatureBuilder(device=dev)
+    mesh._seq_chunks.append(chunk)
+    before = (build_extract.build_extract_windows.launches,
+              build_select.build_select_runs.launches)
+    got = mesh.process_kmers(mesh=make_mesh(tp=1, devices=[dev] * 4))
+    assert (build_extract.build_extract_windows.launches,
+            build_select.build_select_runs.launches) == (before[0] + 4,
+                                                         before[1] + 4)
+    assert len(want) > 10_000
+    for f in dataclasses.fields(want):
+        assert np.array_equal(getattr(got, f.name), getattr(want, f.name))
+    assert dataclasses.asdict(mesh.stats) == dataclasses.asdict(one.stats)
+
+
 def _windows_on(dev, qhi, qlo, valid):
     return (_as_int32(qhi, dev), _as_int32(qlo, dev),
             torch.from_numpy(valid).to(dev))

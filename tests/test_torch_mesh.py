@@ -10,7 +10,7 @@ of every result, array and response byte.
 Every JAX mesh program runs at one shape: one query file (the proteins of
 two training files, which share k-mers) at the default call_batch (256),
 so the callers, the service and the CLI share each compiled program.  The other cases (several rounds, unsorted input,
-tp 1, the verbs without a JAX run) are in tests/test_torch_mesh_tables.py
+tp 1, the verbs without a JAX run) are in tests/test_torch_tables.py
 against the port's single-device path."""
 
 import contextlib
