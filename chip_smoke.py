@@ -185,7 +185,9 @@ Phases, in order; any failure exits non-zero:
    (30,000 sequences), its data dir equal to the same build without
    --mesh; sharded_score_cutoff of 20M seeded two-mode float32 scores on
    the dp-4 mesh and on 1 x 1, equal to each other and to numpy's route
-   (the same float32 bins by np.bincount, the same DP).  Prints the
+   (the same float32 bins by np.bincount, the same DP); table-tool
+   export-nudb of the slice's one-device data dir and import of the
+   export (the same entries as its kmer_data.npz).  Prints the
    seconds of each, run_build's phases, peak device memory and the
    phase's wall time.
 3g. the build's reference stores (run after 3i, on 3d's corpus):
@@ -202,19 +204,44 @@ Phases, in order; any failure exits non-zero:
    corpus's sequences with 3% point mutations called on each (call_batch
    8192, kernels 1-3, every row equal to the wide dir's), and the pair
    without final.kmers opened with cmph_aliasing (kernel 9; 512 sampled
-   best calls against the host route).  table-tool info, verify (OK, 0
-   false hits), export-nudb and import of the export (the same entries
-   as the data dir's kmer_data.npz).  Then every artifact deleted but
-   build.ckpt.d and the build run again (without the two store writers,
-   whose files were checked above): it must parse no FASTA file and
-   write the same final.kmers and kmer_data.npz.  Prints each build's
+   best calls against the host route).  table-tool info and verify (OK,
+   0 false hits; export-nudb and import run in 3i, on its slice).  Then
+   every artifact deleted but build.ckpt.d and the build run again
+   (without the two store writers, whose files were checked above): it
+   must parse no FASTA file and write the same final.kmers and
+   kmer_data.npz.  Prints each build's
    seconds per phase (run_build's names, the two writers' included), the
    files' sizes, peak device memory and each step's seconds.
+3j. the multi-process runtime: ranks as subprocesses of the port's rank
+   entry point (python -m signature_kmers_tpu_torch.testing --strict: the
+   CLI, or the mesh programs; a rank fails if a plain version ran there, and
+   reports its kernel launches and peak device memory on an MP_RANK
+   line), two ranks on the one card over gloo (NCCL cannot run two ranks
+   on one card).  After 3f: serve --mesh --tp 2 over two ranks (tp across
+   them) on phase 3's table saved anew, --warm 300, depth 4; 3f's 16
+   closed-loop clients for 5 s with its uniform300 bodies (every response
+   equal to call_batch's rows), then 3f's /lookup, /matrix and /add (and
+   the /query after it) once each, equal to 3f's answers; /quit ends both
+   ranks with rc 0.  After 3g, on its data dir and its 16384 mutated
+   queries split into 4 files: call-functions in one process (equal to
+   3g's call rows), then over two ranks, plain and with --mesh --tp 1,
+   the files in the order whose shards concatenate to theirs, each merged
+   output equal to the one-process output byte for byte; the call at tp 2
+   on a mesh over both ranks (one cell each; rows equal to the
+   one-process output on each rank, three timed calls) and process_kmers
+   of 3d's corpus at dp 2 over them (kept set, ids and statistics equal
+   to 3d's; the exchange's bytes and ms beside its bound: each rank's
+   record bytes at that rank's loopback rate, a gloo all_to_all of as
+   many bytes of CPU tensors); then, in this
+   process, NCCL at a world of one: each collective wrapper on CUDA
+   tensors held to its definition.  Prints each run's seconds, the
+   ranks' launches and peak memory, qps and p50/p99 beside 3f's, the
+   mesh call's seqs/s beside phase 3's, and the phase's wall time.
 4. one JSON line of per-kernel numbers (launches from one run of each
    kernel's own path, named in launches_of; mesh_launches: each kernel's
-   launches in phase 3h's runs and in 3i's run_build), the card line,
-   and the contract line
-   {"ok": true, "device": {...}} last.
+   launches in phase 3h's runs and in 3i's run_build; mp_launches: its
+   launches per rank in each of 3j's runs), the card line, and the
+   contract line {"ok": true, "device": {...}} last.
 
 Exits non-zero without a result when CUDA is unavailable or when run from
 a directory without the port beside it.
@@ -1203,10 +1230,12 @@ def mesh_build_phase(card: str, differences, plain_of: dict,
                         for a, b in zip(bounds[:-1], bounds[1:])])
     part("route: scatter")
     del wins, orders
-    received = build_step.exchange(buckets, cells)
+    buckets = dict(enumerate(buckets))
+    received = build_step.exchange(mesh4, buckets)
     part("exchange")
     del buckets
-    sorted_w = [build_select.sort_windows(*r) for r in received]
+    sorted_w = [build_select.sort_windows(*received.pop(o))
+                for o in range(4)]
     part("sorts")
     del received
     sel = [build_select.build_select_runs(k1s, p_s, k2s, s_s,
@@ -1286,6 +1315,36 @@ def mesh_build_phase(card: str, differences, plain_of: dict,
         fail(f"phase 3i: build-signatures --mesh differs: {differ}")
     out["cli_s"] = cli_s
 
+    # ---- table-tool export-nudb and the import of its export on the
+    # slice's data dir (phase 3g runs info and verify at 45.1M keys) ----------
+    kd_slice = dirs["one device"]
+    export, imported = root / "export", root / "imported"
+    for args in (("export-nudb", kd_slice, export / "kmer_data"),
+                 ("import", export, imported)):
+        so = io.StringIO()
+        with contextlib.redirect_stdout(so):
+            t0 = time.perf_counter()
+            rc = cli(["table-tool", *map(str, args)])
+            sec = time.perf_counter() - t0
+        print(f"mesh build: table-tool {args[0]} on the slice's data dir: "
+              f"rc {rc} in {sec:.4f} s: {so.getvalue().strip()!r} [{card}]")
+        out[f"table_tool_{args[0]}_s"] = sec
+        if rc:
+            fail(f"phase 3i: table-tool {args[0]} exited {rc}")
+        if args[0] == "export-nudb":
+            shutil.copy(kd_slice / "function.index", export)
+    with np.load(kd_slice / "kmer_data.npz") as a, \
+            np.load(imported / "kmer_data.npz") as b:
+        same = sorted(a.files) == sorted(b.files) and all(
+            np.array_equal(a[k], b[k]) for k in a.files)
+        n_keys = int(a["hi"].shape[0]) if "hi" in a.files else None
+    print(f"mesh build: the import of the NuDB export ({n_keys} keys) "
+          f"equal to the slice's kmer_data.npz array by array: {same}")
+    if not same:
+        fail("phase 3i: the imported NuDB export differs from the table")
+    shutil.rmtree(export)
+    shutil.rmtree(imported)
+
     # ---- sharded_score_cutoff on 20M two-mode scores ------------------------
     srng = np.random.default_rng(17)
     scores = np.concatenate([srng.normal(0.1, 0.01, n_scores // 2),
@@ -1362,13 +1421,15 @@ def keeping_build_results(pipeline):
 
 
 def stores_phase(card: str, call_wrappers: dict, work: Path, corpus,
-                 rng, device: str = "cuda") -> dict:
+                 rng, device: str = "cuda", keep: dict | None = None) -> dict:
     """Phase 3g (module docstring): the build's reference stores, written
     by build-signatures on the card from phase 3d's corpus (fasta and
     definitions dirs), read back, opened and called through; the build
     resumed from its checkpoint; table-tool on its data dir.  Works under
     work/stores.  device="cpu" rehearses it with the plain versions (no
-    launch is then required).  -> this phase's numbers."""
+    launch is then required).  keep, when given, receives phase 3j's
+    inputs: the data dir, the mutated queries and their call rows.  ->
+    this phase's numbers."""
     import hashlib
     import io
     import shutil
@@ -1584,6 +1645,8 @@ def stores_phase(card: str, call_wrappers: dict, work: Path, corpus,
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
+    if keep is not None:
+        keep.update(kd=kd, batch=batch, rows=rows["wide"])
     for label in ("nudb", "cmph+final.kmers"):
         if rows[label] != rows["wide"]:
             fail(f"phase 3g: calls on the {label} store differ from the "
@@ -1637,24 +1700,14 @@ def stores_phase(card: str, call_wrappers: dict, work: Path, corpus,
         out[f"table_tool_{args[0]}_s"] = sec
         return rc, so.getvalue()
 
+    # info and verify at this size; export-nudb and import of the export
+    # (~70 s here) run in phase 3i on its 10-genome slice
     tool("info", kd)
     if tool("verify", kd) != (0, "stored-key round trip: OK\n"
                                  "false hits on random probes: 0\n"):
         fail("phase 3g: table-tool verify did not pass")
-    export, imported = root / "export", root / "imported"
-    if tool("export-nudb", kd, export / "kmer_data")[0] != 0:
-        fail("phase 3g: table-tool export-nudb failed")
-    shutil.copy(kd / "function.index", export)
-    if tool("import", export, imported)[0] != 0:
-        fail("phase 3g: table-tool import failed")
-    with np.load(kd / "kmer_data.npz") as a, \
-            np.load(imported / "kmer_data.npz") as b:
-        if sorted(a.files) != sorted(b.files) or not all(
-                np.array_equal(a[k], b[k]) for k in a.files):
-            fail("phase 3g: the imported NuDB export differs from the table")
+    with np.load(kd / "kmer_data.npz") as a:
         first_npz = {k: a[k] for k in a.files}
-    shutil.rmtree(export)
-    shutil.rmtree(imported)
 
     # ---- the build resumed from its checkpoint (the stores are checked
     # above: the rerun leaves their writers out) -------------------------------
@@ -2578,10 +2631,13 @@ def _back_translate(pep: str, frame: int, rng) -> str:
 
 def service_phase(card, table, function_index, batch, results, related,
                   wrappers, rng, device: str = "cuda",
-                  clients: int = SERVICE_CLIENTS) -> dict:
+                  clients: int = SERVICE_CLIENTS,
+                  keep: dict | None = None) -> dict:
     """Phase 3f (module docstring): the annotation service on the card.
-    -> this phase's numbers (launches per run and route, qps, latency,
-    memory)."""
+    keep, when given, receives phase 3j's requests and this phase's
+    answers to them (the traffic's bodies and rows, /lookup, /matrix, /add
+    and the /query after it).  -> this phase's numbers (launches per run
+    and route, qps, latency, memory)."""
     import asyncio
     import multiprocessing
     import os
@@ -2851,6 +2907,9 @@ def service_phase(card, table, function_index, batch, results, related,
               f"{launched}; plain versions {sum(plain.values())} [{card}]")
         if got != want:
             fail("phase 3f: /lookup differs from the host route")
+        if keep is not None:
+            keep.update(bodies=bodies, wants=wants, seed=client_seed,
+                        lookup=(fasta(batch.ids[:len(kb)], kb), want))
         if on_card and (launched["probe_wide_aux"] <= 0
                         or sum(plain.values())):
             fail("phase 3f: /lookup did not run probe_wide_aux alone")
@@ -2883,6 +2942,8 @@ def service_phase(card, table, function_index, batch, results, related,
               f"after it {mem()} [{card}]")
         if got != want or not want:
             fail("phase 3f: /matrix differs from MatrixDistance.compute")
+        if keep is not None:
+            keep["matrix"] = (fasta(mids, mb), want)
         if on_card and (launched["probe_wide_distance"] <= 0
                         or sum(plain.values())):
             fail("phase 3f: /matrix did not run probe_wide_distance alone")
@@ -2960,6 +3021,8 @@ def service_phase(card, table, function_index, batch, results, related,
                 or f[1:3] != [function_index[fi], str(fi)]
                 or float(f[3]) < cfg.call_margin):
             fail("phase 3f: the added k-mers were not called")
+        if keep is not None:
+            keep["add"] = (lines.encode(), fasta(["added"], [p]), row)
         out["after_add"] = mem()
         out["add_s"] = add_s
 
@@ -3098,6 +3161,444 @@ def service_phase(card, table, function_index, batch, results, related,
         shutil.rmtree(tmp, ignore_errors=True)
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"service phase: {out['wall_s']:.1f} s wall [{card}]")
+    return out
+
+
+# ---- phase 3j: the multi-process runtime ------------------------------------
+
+MP_FILES = 4             # phase 3j: the CLI's query files
+MP_CALL_REPEATS = 3      # timed calls of the process-spanning mesh
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mp_launch(n: int, args_of, cwd: Path, env_extra=None,
+               coordinator: bool = True, strict: bool = True) -> list:
+    """n ranks of the port's rank entry point (python -m
+    signature_kmers_tpu_torch.testing, module docstring), args_of(rank)
+    each, on gloo, output to cwd/rank<r>.log -> [(Popen, log path)]."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    port = _free_port()
+    procs = []
+    for r in range(n):
+        env = dict(os.environ, PYTHONPATH=str(root), SKT_DIST_BACKEND="gloo",
+                   **(env_extra or {}))
+        for k in ("SKT_COORDINATOR", "SKT_NUM_PROCESSES", "SKT_PROCESS_ID"):
+            env.pop(k, None)
+        if coordinator:
+            env.update(SKT_COORDINATOR=f"127.0.0.1:{port}",
+                       SKT_NUM_PROCESSES=str(n), SKT_PROCESS_ID=str(r))
+        log = cwd / f"rank{r}.{time.monotonic_ns()}.log"
+        with open(log, "w") as fh:
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "signature_kmers_tpu_torch.testing",
+                 *(["--strict"] if strict else []), *map(str, args_of(r))],
+                env=env, cwd=cwd, stdout=fh, stderr=subprocess.STDOUT),
+                log))
+    return procs
+
+
+def _mp_stop(procs) -> None:
+    for p, _log in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait(60)
+
+
+def _mp_wait(procs, timeout: float, label: str) -> list:
+    """Each rank's exit code, output and MP_RANK report; fails (after
+    killing every rank) when one is still running at timeout or exits
+    non-zero."""
+    deadline = time.perf_counter() + timeout
+    try:
+        for p, _log in procs:
+            p.wait(max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        _mp_stop(procs)
+        fail(f"phase 3j: {label}: a rank did not exit in {timeout:.0f} s")
+    out = []
+    for r, (p, log) in enumerate(procs):
+        text = log.read_text(errors="replace")
+        rep = [json.loads(line[len("MP_RANK "):]) for line in
+               text.splitlines() if line.startswith("MP_RANK ")]
+        if p.returncode != 0 or not rep:
+            _mp_stop(procs)
+            fail(f"phase 3j: {label}: rank {r} exited {p.returncode}:\n"
+                 f"{text[-3000:]}")
+        out.append(dict(rc=p.returncode, log=text, report=rep[-1]))
+    return out
+
+
+def _mp_need(label: str, ranks: list, need: dict, on_card: bool) -> dict:
+    """Each rank's launches; fails unless every kernel in need[rank]
+    launched there (--strict already failed a rank on which a plain
+    version ran).  -> {kernel: [launches per rank]}."""
+    launches = {}
+    for r, x in enumerate(ranks):
+        for k, n in x["report"]["launches"].items():
+            launches.setdefault(k, [0] * len(ranks))[r] = n
+    print(f"phase 3j {label} launches per rank: "
+          f"{ {k: v for k, v in launches.items() if any(v)} }; peak device "
+          f"memory per rank "
+          f"{[round(x['report']['peak_mib'], 1) for x in ranks]} MiB")
+    if on_card:
+        for r, names in need.items():
+            for k in names:
+                if launches[k][r] <= 0:
+                    fail(f"phase 3j: {label}: {k} was not launched on rank "
+                         f"{r}")
+    return launches
+
+
+def _run_clients(port, traffic_file, clients: int, seed: int):
+    """phase 3f's closed-loop clients (_service_client) against a server
+    on port -> (per-client results, the wall seconds)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    q, go = ctx.Queue(), ctx.Event()
+    procs = [ctx.Process(target=_service_client, args=(
+        port, str(traffic_file), c, clients, SERVICE_WINDOW_S, seed, q, go),
+        daemon=True) for c in range(clients)]
+    try:
+        for pr in procs:
+            pr.start()
+        for _ in procs:
+            if q.get(timeout=300) != "ready":
+                fail("phase 3j: a client process did not start")
+        t_go = time.perf_counter()
+        go.set()
+        done = [q.get(timeout=600) for _ in procs]
+        wall = time.perf_counter() - t_go
+        for pr in procs:
+            pr.join(60)
+    finally:
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+    return done, wall
+
+
+def mp_serve_phase(card: str, table, function_index, kept: dict,
+                   device: str = "cuda",
+                   clients: int = SERVICE_CLIENTS) -> dict:
+    """Phase 3j, the service (module docstring; run after 3f, with 3f's
+    requests and answers in kept): serve --mesh --tp 2 over two ranks on
+    the one card, rank 0's front end on phase 3's table.  -> numbers."""
+    import pickle
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+
+    from signature_kmers_tpu_torch.io import formats
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    tmp = Path(tempfile.mkdtemp(prefix="skt_mp_serve_"))
+    procs = []
+    try:
+        d = tmp / "kd"
+        d.mkdir()
+        table.save(d / "kmer_data", compact=False)
+        formats.write_function_index(
+            d / "function.index", [(i, f, 0, 0.0, 0.0, 0.0, 0.0)
+                                    for i, f in enumerate(function_index)])
+        traffic_file = tmp / "traffic.pkl"
+        with open(traffic_file, "wb") as fh:
+            pickle.dump((kept["bodies"], kept["wants"]), fh)
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = _mp_launch(2, lambda r: [
+            "cli", "serve", "-d", d, "--port", port, "--mesh", "--tp", "2",
+            "--warm", SERVICE_WARM_LEN, "--device", device], tmp,
+            {"SKT_SERVE_DEPTH": "4"}, strict=on_card)
+        while True:
+            if any(p.poll() is not None for p, _ in procs):
+                _mp_wait(procs, 60, "serve start")
+                fail("phase 3j: a serve rank exited before listening")
+            if time.perf_counter() - t0 > 600:
+                _mp_stop(procs)
+                fail("phase 3j: the multihost service did not start")
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{port}/version",
+                                       timeout=5).read()
+                break
+            except OSError:
+                time.sleep(0.5)
+        out["start_s"] = time.perf_counter() - t0
+        print(f"mp serve: two ranks on {device} (gloo), mesh 1 x 2 (tp "
+              f"across the ranks), {table.n_items} keys: listening after "
+              f"{out['start_s']:.1f} s (start, load_data_dir, sharding, "
+              f"warm {SERVICE_WARM_LEN}) [{card}]")
+        done, wall = _run_clients(port, traffic_file, clients, kept["seed"])
+        errors = [e for _c, _r, _b, e in done if e]
+        if errors:
+            _mp_stop(procs)
+            fail(f"phase 3j: a client failed: {errors[0]}")
+        recs = [r for _c, rs, _b, _e in done for r in rs]
+        bad = sum(b for _c, _r, b, _e in done)
+        asked = len({r for r, _t, _l in recs})
+        lat = np.asarray([x for _r, _t, x in recs]) * 1e3
+        sizes = dict(line.split("\t") for line in _post(
+            port, "/dump_sizes", method="GET").splitlines())
+        out.update(requests=len(recs), wall_s=wall, qps=len(recs) / wall,
+                   seqs_per_s=len(recs) * SERVICE_REQ_SEQS / wall,
+                   p50_ms=float(np.percentile(lat, 50)),
+                   p99_ms=float(np.percentile(lat, 99)),
+                   batches=int(sizes["query_batches"]),
+                   mean_batch=int(sizes["query_seqs"])
+                   / max(int(sizes["query_batches"]), 1), differ=bad)
+        print(f"mp serve depth 4: {len(recs)} requests x {SERVICE_REQ_SEQS} "
+              f"uniform300 seqs ({asked} of {len(kept['bodies'])} bodies "
+              f"asked) from {clients} client processes in {wall:.4f} s = "
+              f"{out['qps']:.1f} qps, {out['seqs_per_s']:.1f} seqs/s; "
+              f"latency p50 {out['p50_ms']:.2f} ms, p99 {out['p99_ms']:.2f}"
+              f" ms; {out['batches']} coalesced batches, mean "
+              f"{out['mean_batch']:.1f} seqs; {bad} responses differ from "
+              f"call_batch [{card}]")
+        if bad or asked != len(kept["bodies"]):
+            _mp_stop(procs)
+            fail(f"phase 3j: {bad} responses differ from call_batch, "
+                 f"{asked} bodies asked")
+        for route in ("lookup", "matrix"):
+            body, want = kept[route]
+            t0 = time.perf_counter()
+            got = _post(port, f"/{route}", body)
+            out[f"{route}_s"] = time.perf_counter() - t0
+            print(f"mp serve /{route}: {out[f'{route}_s']:.2f} s, equal to "
+                  f"phase 3f's answer: {got == want} [{card}]")
+            if got != want:
+                _mp_stop(procs)
+                fail(f"phase 3j: /{route} differs from phase 3f's")
+        lines, qbody, row = kept["add"]
+        t0 = time.perf_counter()
+        got = _post(port, "/add", lines)
+        out["add_s"] = time.perf_counter() - t0
+        after = _post(port, "/query", qbody)
+        print(f"mp serve /add: {got.strip()} in {out['add_s']:.1f} s (both "
+              f"ranks rebuild and re-shard); the /query after it equal to "
+              f"phase 3f's: {after == row} [{card}]")
+        if got != f"added {SERVICE_ADDED}\n" or after != row:
+            _mp_stop(procs)
+            fail("phase 3j: /add or the /query after it differs from 3f")
+        if _post(port, "/quit", method="GET") != "OK\n":
+            _mp_stop(procs)
+            fail("phase 3j: /quit did not answer OK")
+        ranks = _mp_wait(procs, 120, "serve")
+        out["launches"] = _mp_need("serve", ranks, {
+            0: ("pack_call_windows_rows16", "probe_wide",
+                "device_automaton_packed", "probe_wide_aux",
+                "probe_wide_distance"),
+            1: ("pack_call_windows_rows16", "probe_wide", "probe_wide_aux",
+                "probe_wide_distance")}, on_card)
+        out["peak_mib"] = [x["report"]["peak_mib"] for x in ranks]
+    finally:
+        _mp_stop(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"mp serve phase: {out['phase_s']:.1f} s wall [{card}]")
+    return out
+
+
+def mp_nccl_check(card: str) -> dict:
+    """Phase 3j's world of one on NCCL, in this process: each collective
+    wrapper on CUDA tensors, held to its definition."""
+    import torch
+
+    from signature_kmers_tpu_torch.parallel import distributed
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    assert distributed.initialize(f"127.0.0.1:{_free_port()}", 1, 0,
+                                  backend="nccl", device="cuda")
+    try:
+        import torch.distributed as dist
+
+        g = distributed.world()
+        if dist.get_backend(g.dev) != "nccl" or dist.get_backend(
+                g.ctl) != "gloo":
+            fail("phase 3j: the planes are not nccl (device) and gloo "
+                 "(control)")
+        checks = {}
+        x = torch.arange(7, dtype=torch.int64, device=dev) * 3
+        checks["all_reduce_sum"] = torch.equal(
+            distributed.all_reduce_sum(x.clone(), g), x)
+        for n in (0, 5):
+            y = torch.arange(n * 3, dtype=torch.int32,
+                             device=dev).reshape(n, 3)
+            got = distributed.all_gather_uneven(y, g)
+            checks[f"all_gather_uneven[{n}]"] = (
+                len(got) == 1 and torch.equal(got[0], y)
+                and got[0].device == dev)
+        for splits, n in (([0], 0), ([9], 9)):
+            z = torch.arange(n * 2, dtype=torch.int32,
+                             device=dev).reshape(n, 2)
+            got, recv = distributed.all_to_all_uneven(z, splits, g)
+            checks[f"all_to_all_uneven{splits}"] = (
+                torch.equal(got, z) and recv == splits
+                and got.device == dev)
+        b = torch.arange(11, dtype=torch.uint8, device=dev)
+        checks["broadcast"] = torch.equal(
+            distributed.broadcast(b.clone(), 0, g), b)
+        shared = distributed.share({3: x, 4: b.bool()}, g, dev)
+        checks["share"] = (torch.equal(shared[3], x)
+                           and torch.equal(shared[4], b.bool()))
+        torch.cuda.synchronize()
+    finally:
+        distributed.shutdown()
+    sec = time.perf_counter() - t0
+    print(f"mp nccl world 1: {checks}; {sec:.2f} s [{card}]")
+    if not all(checks.values()):
+        fail(f"phase 3j: a collective wrapper differs from its definition "
+             f"on nccl: {checks}")
+    return dict(checks=checks, seconds=sec)
+
+
+def mp_phase(card: str, work: Path, kept: dict, p3_rate: float,
+             device: str = "cuda") -> dict:
+    """Phase 3j, the CLI and the mesh (module docstring; run after 3g on
+    its data dir and queries, with 3d's corpus and kept set in kept):
+    call-functions over two ranks, plain and with --mesh --tp 1, against
+    the one-process CLI; the call at tp 2 and the build at dp 2 on a mesh
+    over both ranks; the NCCL world of one.  -> numbers."""
+    import numpy as np
+
+    from signature_kmers_tpu_torch.core import alphabet
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    root = work / "mp"
+    root.mkdir()
+    out = {"card": card, "launches": {}}
+    kd, batch = kept["kd"], kept["batch"]
+
+    def seq(i):
+        return batch.codes[batch.offsets[i]:batch.offsets[i + 1]]
+
+    per = -(-len(batch) // MP_FILES)
+    files = []
+    for f in range(MP_FILES):
+        p = root / f"q{f}.fa"
+        p.write_text("".join(
+            f">{batch.ids[i]}\n{alphabet.decode_codes(seq(i))}\n"
+            for i in range(f * per, min((f + 1) * per, len(batch)))))
+        files.append(p)
+    all_fa = root / "all.fa"
+    all_fa.write_bytes(b"".join(p.read_bytes() for p in files))
+    # the order whose round-robin shards [r::2] concatenate to the files'
+    order = [files[0], files[2], files[1], files[3]]
+
+    def cli(label, n, argv, out_file, coordinator=True):
+        t0 = time.perf_counter()
+        ranks = _mp_wait(_mp_launch(n, lambda r: ["cli", *argv, "-o",
+                                                  out_file, "--device",
+                                                  device], root,
+                                    coordinator=coordinator,
+                                    strict=on_card), 600, label)
+        sec = time.perf_counter() - t0
+        out[f"{label}_s"] = sec
+        out["launches"][label] = _mp_need(label, ranks, {
+            r: ("pack_call_windows_rows16", "probe_wide",
+                "device_automaton_packed") for r in range(n)}, on_card)
+        return sec, Path(out_file).read_bytes()
+
+    one_s, one = cli("cli one process", 1, ["call-functions", "-d", kd,
+                                            "-i", *files],
+                     root / "one.tsv", coordinator=False)
+    same_3g = one.decode("latin-1") == kept["rows"]
+    print(f"mp cli: call-functions of {len(batch)} mutated corpus sequences "
+          f"in {MP_FILES} files on 3g's data dir, one process: "
+          f"{one_s:.2f} s (start to exit), equal to 3g's call_batch rows: "
+          f"{same_3g} [{card}]")
+    if not same_3g:
+        fail("phase 3j: the one-process CLI differs from 3g's call rows")
+    for label, extra in (("cli 2 ranks", []),
+                         ("cli 2 ranks --mesh", ["--mesh", "--tp", "1"])):
+        merged = root / f"{label.replace(' ', '_')}.tsv"
+        sec, got = cli(label, 2, ["call-functions", "-d", kd, "-i", *order,
+                                  *extra], merged)
+        shards = list(root.glob(f"{merged.name}.shard*"))
+        print(f"mp cli: {label}: {sec:.2f} s (one process {one_s:.2f}); the "
+              f"merged output equal to the one-process output byte for "
+              f"byte: {got == one}; shards left {len(shards)} [{card}]")
+        if got != one or shards:
+            fail(f"phase 3j: {label}: the merged output differs")
+
+    # the mesh call at tp 2 (one cell a rank) and the build at dp 2
+    np.savez(root / "corpus.npz", codes=kept["seqs"][0],
+             sids=kept["seqs"][1], fidxs=kept["seqs"][2],
+             plens=kept["seqs"][3])
+    spec = root / "mesh.json"
+    spec.write_text(json.dumps(dict(
+        device=device, cells=1, tp=2, data_dir=str(kd), queries=str(all_fa),
+        call_batch=8192, repeats=MP_CALL_REPEATS,
+        corpus_npz=str(root / "corpus.npz"), build_tp=1, loopback=True,
+        out=str(root / "mesh_res"))))
+    t0 = time.perf_counter()
+    ranks = _mp_wait(_mp_launch(2, lambda r: ["mesh", spec], root,
+                                strict=on_card), 900, "mesh")
+    out["mesh_job_s"] = time.perf_counter() - t0
+    res = [json.loads((root / f"mesh_res.{r}").read_text()) for r in (0, 1)]
+    out["launches"]["mesh call + build"] = _mp_need(
+        "mesh call + build", ranks, {
+            0: ("pack_call_windows_rows16", "probe_wide",
+                "device_automaton_packed", "build_extract_windows",
+                "build_select_runs"),
+            1: ("pack_call_windows_rows16", "probe_wide",
+                "build_extract_windows", "build_select_runs")}, on_card)
+    rows_ok = [x["rows"] == one.decode("latin-1") for x in res]
+    kept_ok = [x["kept"] == kept["kept_digest"] for x in res]
+    rate = len(batch) / min(res[0]["call_s"])
+    ex = res[0]["exchange"]
+    # each rank sends its own records (the total is every rank's): the
+    # bound is the slower rank's bytes at its own loopback rate
+    loop_rate = [x["loopback_bytes"] / x["loopback_s"] for x in res]
+    ex_bound = max(x["exchange"]["rank_bytes"] / r
+                   for x, r in zip(res, loop_rate))
+    out.update(mesh_shard_s=res[0]["shard_s"], mesh_call_s=res[0]["call_s"],
+               mesh_seqs_per_s=rate, p3_seqs_per_s=p3_rate,
+               process_kmers_s=[x["process_kmers_s"] for x in res],
+               exchange=ex, loopback_bytes_per_s=loop_rate,
+               exchange_s=[x["exchange"]["seconds"] for x in res],
+               exchange_bound_ms=ex_bound * 1e3,
+               mesh_peak_mib=[x["report"]["peak_mib"] for x in ranks])
+    print(f"mp mesh call: mesh {res[0]['shape']} over two ranks (tp across "
+          f"them), {len(batch)} sequences at call_batch 8192: sharding "
+          f"{res[0]['shard_s']:.2f} s, calls "
+          f"{', '.join(f'{t:.4f}' for t in res[0]['call_s'])} s = "
+          f"{rate:.1f} seqs/s at best (phase 3, one process, uniform300 "
+          f"best: {p3_rate:.1f}); rows equal to the one-process CLI's on "
+          f"each rank: {rows_ok} [{card}]")
+    pk = ", ".join(f"{x:.4f}" for x in out["process_kmers_s"])
+    print(f"mp mesh build: process_kmers on mesh {res[0]['build_shape']} "
+          f"over two ranks: {pk} s per rank; kept set, ids and statistics "
+          f"equal to 3d's on each rank: {kept_ok}; the exchange "
+          f"{ex['bytes']} bytes in all, by rank "
+          f"{[x['exchange']['rank_bytes'] for x in res]} "
+          f"({[x['exchange']['sent_off_rank'] for x in res]} left it), in "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in out['exchange_s'])} ms; "
+          f"bound {out['exchange_bound_ms']:.2f} ms: each rank's bytes at "
+          f"its loopback rate (a gloo all_to_all of as many bytes of CPU "
+          f"tensors, split evenly: "
+          f"{', '.join(f'{r / 1e9:.3f}' for r in loop_rate)} GB/s) "
+          f"[{card}]")
+    if not all(rows_ok) or not all(kept_ok):
+        fail("phase 3j: the process-spanning mesh's rows or kept set differ")
+    out["nccl"] = mp_nccl_check(card) if on_card else None
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"mp phase (cli, mesh, nccl): {out['phase_s']:.1f} s wall [{card}]")
     return out
 
 
@@ -3969,11 +4470,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 3f: the annotation service on the card ---------------------
+    keep_3f = {}
     service = service_phase(card, table, function_index, sets["uniform300"],
-                            outputs["uniform300"], related, all_wrappers, rng)
+                            outputs["uniform300"], related, all_wrappers, rng,
+                            keep=keep_3f)
     print(json.dumps({"service": service}))
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- phase 3j, the service: serve --mesh over two ranks ---------------
+    mp_serve = mp_serve_phase(card, table, function_index, keep_3f)
+    del keep_3f
+    print(json.dumps({"mp_serve": mp_serve}))
 
     # ---- phase 3e: the cuckoo layout and a reference CMPH store ----------
     t_phase = time.perf_counter()
@@ -4013,14 +4521,26 @@ def main() -> int:
         mesh_build = mesh_build_phase(card, differences, plain_of,
                                       all_wrappers, work, corpus, one)
         shutil.rmtree(one["kd"], ignore_errors=True)
+        # phase 3j's build: 3d's concatenated corpus and kept set
+        keep_3j = dict(seqs=one["seqs"], kept_digest=kernel_cases.kept_digest(
+            one["kept"], one["stats"]))
         del one
         print(json.dumps({"mesh_build": mesh_build}))
         gc.collect()
         torch.cuda.empty_cache()
 
         # ---- phase 3g: the build's reference stores -----------------------
-        stores = stores_phase(card, all_wrappers, work, corpus, rng)
+        stores = stores_phase(card, all_wrappers, work, corpus, rng,
+                              keep=keep_3j)
         print(json.dumps({"stores": stores}))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- phase 3j: the CLI and the mesh over two ranks, NCCL at one --
+        mp = mp_phase(card, work, keep_3j, max(p3_rates["uniform300"]))
+        del keep_3j
+        print(json.dumps({"mp": {k: v for k, v in mp.items()
+                                 if k != "launches"}}))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4075,6 +4595,13 @@ def main() -> int:
     for run, counts in mesh_out["launches"].items():
         for name, n in counts.items():
             mesh_launches.setdefault(name, {})[run] = n
+    # each kernel's launches per rank in phase 3j's multi-process runs
+    mp_runs = dict(mp["launches"], serve=mp_serve["launches"])
+    mp_launches = {}
+    for run, counts in mp_runs.items():
+        for name, per_rank in counts.items():
+            if any(per_rank):
+                mp_launches.setdefault(name, {})[run] = per_rank
     for name in ("probe_bucket", "probe_cmph"):
         report[name]["aux_launches"] = layout_launches[f"{name}_aux"]
     launches_of = dict.fromkeys(
@@ -4127,6 +4654,7 @@ def main() -> int:
                             bound_by=r["bound_by"], library_ms=None,
                             gather_ms=r.get("gather_ms"),
                             mesh_launches=mesh_launches.get(name, {}),
+                            mp_launches=mp_launches.get(name, {}),
                             mismatches=r["mismatches"], **extra))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall")
     print(json.dumps({"kernels": kernels}))

@@ -19,7 +19,21 @@ Each verb runs as one process: on one device, or with ``--mesh`` (and
 ``--device cpu`` their plain PyTorch versions; table-tool and setup-build
 are host code and take no ``--device``.  ``build-signatures --mesh``
 shards the selection over the mesh's dp rows (parallel/build_step.py).
-Multi-process runs (SKT_COORDINATOR) are not ported yet and fail.
+
+Multi-process runs (parallel/distributed.py): each rank is one process,
+
+  SKT_COORDINATOR=host:port SKT_NUM_PROCESSES=n SKT_PROCESS_ID=r \
+      python -m signature_kmers_tpu_torch.cli.main <verb> ...
+
+with SKT_DIST_BACKEND=gloo|nccl for the device plane (default nccl with
+``--device cuda``, gloo with ``--device cpu``; two ranks on one card need
+gloo).  call-functions and annotate-seqs call each rank's slice of the
+input files into a private shard that rank 0 merges (call-functions then
+needs ``-o``); matrix-distance-folder and -merge split their file and
+family lists; ``--mesh`` is then each rank's own devices.  ``serve --mesh``
+runs one service on a mesh over every rank's devices: rank 0 answers HTTP
+and broadcasts each dispatch, the other ranks follow (service/
+multihost.py).
 """
 
 from __future__ import annotations
@@ -61,13 +75,20 @@ def _add_mesh(p, help_text: str, tp: bool = True):
 _MESH_HELP = "shard work over all local devices (dp x tp mesh)"
 
 
-def _mesh(args):
-    """The (dp, tp) mesh over every local device of --device's type, or
-    None without --mesh."""
+def _mesh(args, local: bool = False):
+    """The (dp, tp) mesh over every local device of --device's type (in a
+    multi-process run: of every rank, unless local), or None without
+    --mesh."""
     if not getattr(args, "mesh", False):
         return None
     return mesh_mod.make_mesh(tp=getattr(args, "tp", None),
-                              devices=mesh_mod.local_devices(args.device))
+                              devices=mesh_mod.local_devices(args.device),
+                              local=local)
+
+
+def _initialize(args) -> bool:
+    """Join the multi-process run that SKT_COORDINATOR names, if any."""
+    return distributed.initialize(device=args.device)
 
 
 def _add_build(sub):
@@ -183,16 +204,17 @@ def _add_call(sub):
     p.set_defaults(func=cmd_call)
 
 
-def _caller(args, data_dir, cmph_aliasing: bool = False) -> FunctionCaller:
-    """The verb's caller: a ParallelFunctionCaller with --mesh, else a
-    FunctionCaller on --device."""
-    distributed.initialize()
+def _caller(args, data_dir, multi: bool,
+            cmph_aliasing: bool = False) -> FunctionCaller:
+    """The verb's caller: a ParallelFunctionCaller with --mesh (of this
+    process's devices in a multi-process run, which takes its own file
+    slice), else a FunctionCaller on --device."""
     cfg = Config()
     table, function_index = pipeline.load_data_dir(
         data_dir, cfg, cmph_aliasing=cmph_aliasing)
     call_cfg = dataclasses.replace(cfg.call,
                                    ignore_hypothetical=args.ignore_hypo)
-    mesh = _mesh(args)
+    mesh = _mesh(args, local=multi)
     if mesh is not None:
         from ..parallel.parallel_caller import ParallelFunctionCaller
 
@@ -203,9 +225,21 @@ def _caller(args, data_dir, cmph_aliasing: bool = False) -> FunctionCaller:
 
 
 def cmd_call(args):
-    caller = _caller(args, args.data_dir, args.cmph_aliasing)
+    multi = _initialize(args)
+    caller = _caller(args, args.data_dir, multi, args.cmph_aliasing)
     function_index = caller.function_index
-    out = open(args.output_file, "w") if args.output_file else sys.stdout
+    if multi and not args.output_file:
+        # stdout would interleave the processes' slices with no merge
+        raise SystemExit(
+            "call-functions: -o/--output-file is required when running "
+            "multi-host (jax.process_count() > 1); per-process stdout "
+            "slices cannot be merged")
+    # each process calls its own slice of the files into a private shard,
+    # which rank 0 concatenates after the barrier (ref: each job takes
+    # disjoint inputs, kmers-matrix-distance-folder.cc:108-116)
+    shard = distributed.shard_path(args.output_file) if multi else None
+    out = (open(shard or args.output_file, "w") if args.output_file
+           else sys.stdout)
     try:
         for path in distributed.shard_inputs(args.input_files):
             batch = fasta_io.read_fasta_batch(path)
@@ -236,7 +270,21 @@ def cmd_call(args):
     finally:
         if out is not sys.stdout:
             out.close()
+    if multi:
+        # shards concatenate by rank (shard p held files p::n)
+        _merge_outputs("call", args.output_file)
     return 0
+
+
+def _merge_outputs(verb: str, *targets) -> None:
+    """Every rank's shards written, rank 0 merges them, every rank waits
+    for the merge."""
+    distributed.barrier(f"{verb}-shards-written",
+                        timeout=distributed.WORK_TIMEOUT)
+    for t in targets:
+        distributed.merge_shards(t)
+    distributed.barrier(f"{verb}-shards-merged",
+                        timeout=distributed.WORK_TIMEOUT)
 
 
 def _add_annotate(sub):
@@ -254,9 +302,12 @@ def _add_annotate(sub):
 
 
 def cmd_annotate(args):
-    caller = _caller(args, args.kmer_data_dir)
+    multi = _initialize(args)
+    caller = _caller(args, args.kmer_data_dir, multi)
     uncalled = []
-    with open(args.calls_file, "w") as out:
+    calls = (distributed.shard_path(args.calls_file) if multi
+             else args.calls_file)
+    with open(calls, "w") as out:
         for path in distributed.shard_inputs(
                 paths.populate_path_list([args.sequences_dir])):
             for res in caller.call_file(path):
@@ -266,7 +317,12 @@ def cmd_annotate(args):
                     out.write(formats.format_call_row(
                         res.seq_id, res.best.function,
                         res.best.function_index, res.best.score))
-    formats.write_lines(args.uncalled_ids_file, uncalled)
+    if multi:
+        formats.write_lines(distributed.shard_path(args.uncalled_ids_file),
+                            uncalled)
+        _merge_outputs("annotate", args.calls_file, args.uncalled_ids_file)
+    else:
+        formats.write_lines(args.uncalled_ids_file, uncalled)
     return 0
 
 
@@ -340,11 +396,14 @@ def _add_matrix_folder(sub):
 
 
 def cmd_matrix_folder(args):
-    distributed.initialize()
+    multi = _initialize(args)
     md = _distance(args.data_dir, args.device)
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    mesh = _mesh(args)
+    # each process's own devices: the processes compute different files
+    mesh = _mesh(args, local=multi)
+    # each process takes its own slice of the files; the existence skip
+    # below keeps any set of concurrent or restarted runs safe
     for f in distributed.shard_inputs(sorted(Path(args.input_dir).iterdir())):
         if not f.is_file():
             continue
@@ -356,6 +415,7 @@ def cmd_matrix_folder(args):
         res = md.compute([fasta_io.read_fasta_batch(f)], mesh=mesh)
         formats.write_distance(out, res.rows(with_score=True),
                                with_score=True)
+    distributed.barrier("folder-done", timeout=distributed.WORK_TIMEOUT)
     return 0
 
 
@@ -384,7 +444,9 @@ def cmd_matrix_merge(args):
     if not genus_dirs:
         print(f"No valid genus directories found in {base}", file=sys.stderr)
         return 1
-    distributed.initialize()
+    _initialize(args)
+    # each process takes its own slice of the families
+    # (ref: *-merge.cc:125-135)
     work = distributed.shard_inputs(args.family_ids or [
         str(i) for i in range(len(md.caller.function_index))])
     out_dir = Path(args.output_dir)
@@ -400,6 +462,7 @@ def cmd_matrix_merge(args):
         res = md.compute(batches)
         formats.write_distance(out_dir / fam, res.rows(with_score=True),
                                with_score=True)
+    distributed.barrier("merge-done", timeout=distributed.WORK_TIMEOUT)
     return 0
 
 
@@ -446,7 +509,8 @@ def cmd_serve(args):
     from ..service.server import AnnotationService, serve, \
         write_kmer_distribution
 
-    distributed.initialize()
+    if _initialize(args):
+        return _serve_multihost(args)
     if args.no_listen:
         # profiling path: load the data dir with its engines and exit
         svc = AnnotationService(args.data_dir, device=args.device,
@@ -488,6 +552,62 @@ def cmd_serve(args):
     return 0
 
 
+def _serve_multihost(args):
+    """serve under a coordinator: one service on a mesh over every rank's
+    devices (the table tp-sharded across them); rank 0 serves HTTP and
+    broadcasts each dispatch, the other ranks follow (service/
+    multihost.py).  Needs --mesh; refuses --daemonize (a fork after the
+    process group's start would orphan gloo's threads)."""
+    from ..service.multihost import follower_loop
+    from ..service.server import AnnotationService, serve, \
+        write_kmer_distribution
+
+    if not args.mesh:
+        raise SystemExit("serve: multi-host (SKT_COORDINATOR set) "
+                         "requires --mesh")
+    if args.daemonize:
+        raise SystemExit("serve: --daemonize is incompatible with "
+                         "multi-host serving")
+    mesh = _mesh(args)
+    rank0 = distributed.is_main()
+
+    def write_distribution(table, function_index):
+        write_kmer_distribution(table, function_index,
+                                args.kmer_family_distribution)
+        print(f"write distribution to {args.kmer_family_distribution}",
+              file=sys.stderr)
+
+    if args.no_listen:
+        # every rank loads the data dir on the mesh and exits; nobody
+        # enters the broadcast loop
+        svc = AnnotationService(args.data_dir, device=args.device,
+                                mesh=mesh, multihost=True)
+        if rank0 and args.kmer_family_distribution:
+            write_distribution(svc.table, svc.function_index)
+        if rank0:
+            print(f"loaded {svc.table.n_items} kmers; not listening",
+                  file=sys.stderr)
+        return 0
+    if rank0 and args.kmer_family_distribution:
+        # host side (table.occupied() only): no second sharded service
+        write_distribution(*pipeline.load_data_dir(args.data_dir))
+    if rank0:
+        if args.pid_file:
+            Path(args.pid_file).write_text(f"{os.getpid()}\n")
+        serve(args.data_dir, host=args.host, port=args.port,
+              device=args.device, warm_len=args.warm,
+              listen_port_file=args.listen_port_file,
+              kmer_version=args.kmer_version, mesh=mesh, multihost=True)
+    else:
+        svc = AnnotationService(args.data_dir, device=args.device, mesh=mesh,
+                                multihost=True)
+        # rank 0's first frame comes once its own service is built
+        distributed.barrier("service-built",
+                            timeout=distributed.WORK_TIMEOUT)
+        follower_loop(svc)
+    return 0
+
+
 def _apply_n_threads(args) -> None:
     """Map the reference's --n-threads / -j / --parallel to the native host
     runtime's worker count (SKT_THREADS: table placement, best call);
@@ -525,7 +645,9 @@ def main(argv=None):
 
     args = parser.parse_args(argv)
     _apply_n_threads(args)
-    return args.func(args)
+    rc = args.func(args)
+    distributed.shutdown()
+    return rc
 
 
 if __name__ == "__main__":

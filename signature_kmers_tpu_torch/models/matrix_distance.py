@@ -17,8 +17,11 @@ float32 products.
 On a mesh (compute(..., mesh=)) the incidence blocks are split over every
 device of the mesh, each accumulating its own partial C, and the partials
 are summed on the mesh's first device: the JAX package's psum over the
-(dp, tp) grid.  With ``mesh_caller`` set (the mesh service), the hits are
-gathered against the tp-split table by that ParallelFunctionCaller
+(dp, tp) grid.  On a mesh that spans processes each rank counts its own
+cells' blocks, and the partials are summed over every rank
+(all_reduce_sum), so every rank gets the same matrix.  With
+``mesh_caller`` set (the mesh service), the hits are gathered against
+the tp-split table by that ParallelFunctionCaller
 (gather_found_filtered) instead of this object's own caller.
 
 Filter semantics match the reference:
@@ -47,6 +50,7 @@ from ..core.config import CallConfig, DeviceConfig, DistanceConfig
 from ..golden.distance import DistanceResult
 from ..io import fasta as fasta_io
 from ..ops import kmer_pack, probe
+from ..parallel import distributed
 from ..table import WideKmerTable
 from . import function_caller as function_caller_mod
 from .function_caller import FunctionCaller
@@ -247,10 +251,25 @@ class MatrixDistance:
                                                  **self.filter_args())
         return mask.cpu().numpy()
 
-    def _devices(self, mesh) -> list:
-        """The devices that count pairs: every cell of the mesh, or this
-        object's device."""
-        return mesh.flat if mesh is not None else [self.device]
+    def _cells(self, mesh) -> list:
+        """The cells that count pairs, as (device, is this process's):
+        every cell of the mesh, or this object's device."""
+        if mesh is None:
+            return [(self.device, True)]
+        return [(dev, mesh.is_local(d, t))
+                for d, row in enumerate(mesh.devices)
+                for t, dev in enumerate(row)]
+
+    @staticmethod
+    def _sum_ranks(C, mesh, shape):
+        """Partial counts summed over every rank of a process-spanning
+        mesh (C None: this process counted none), else C as it is."""
+        g = mesh.all_group() if mesh is not None else None
+        if g is None:
+            return C
+        if C is None:
+            C = torch.zeros(shape, dtype=torch.float32, device=mesh.home)
+        return distributed.all_reduce_sum(C, g)
 
     def _pair_counts(self, kmer_id: np.ndarray, seqs: np.ndarray,
                      n_seqs: int, mesh=None) -> torch.Tensor:
@@ -285,13 +304,13 @@ class MatrixDistance:
         bounds = np.searchsorted(
             kk, np.arange(0, n_kmers + DENSE_BLOCK, DENSE_BLOCK)).tolist()
         nb = len(bounds) - 1
-        devices = self._devices(mesh)
-        per = -(-nb // len(devices))
+        cells = self._cells(mesh)
+        per = -(-nb // len(cells))
         C = None
         with _full_float32():
-            for i, dev in enumerate(devices):
+            for i, (dev, mine) in enumerate(cells):
                 first, last = i * per, min((i + 1) * per, nb)
-                if first >= last:
+                if first >= last or not mine:
                     continue
                 base = bounds[first]
                 kk_t = torch.from_numpy(kk[base:bounds[last]]).to(dev)
@@ -305,7 +324,7 @@ class MatrixDistance:
                     _incidence(A, kk_t[a:b] - bi * DENSE_BLOCK, ss_t[a:b])
                     part.addmm_(A.t(), A)
                 C = part if C is None else C.add_(part.to(C.device))
-        return C
+        return self._sum_ranks(C, mesh, (n_seqs, n_seqs))
 
     def _pairs_tiled(self, kmer_id: np.ndarray, seqs: np.ndarray,
                      n_seqs: int, mesh=None):
@@ -340,11 +359,12 @@ class MatrixDistance:
                          min(sblk, n_seqs - j * sblk)))
         # per device: its k-mer blocks [lo, hi) and each sequence block's
         # entries of them, uploaded once
-        per = -(-nkb // len(self._devices(mesh)))
+        cells = self._cells(mesh)
+        per = -(-nkb // len(cells))
         shares = []
-        for r, dev in enumerate(self._devices(mesh)):
+        for r, (dev, mine) in enumerate(cells):
             lo, hi = r * per, min((r + 1) * per, nkb)
-            if lo < hi:
+            if lo < hi and mine:
                 shares.append((dev, lo, hi, [
                     (torch.from_numpy(kj[c[lo]:c[hi]]).to(dev),
                      torch.from_numpy(sj[c[lo]:c[hi]]).to(dev))
@@ -380,6 +400,7 @@ class MatrixDistance:
                                 incidence(AJ, share, j, bi)
                             part.addmm_(AI.t(), AJ)
                         C = part if C is None else C.add_(part.to(C.device))
+                    C = self._sum_ranks(C, mesh, (wi, wj))
                     pairs.extend(_nonzero_pairs(C, i * sblk, j * sblk,
                                                 upper=i == j))
         pairs.sort()

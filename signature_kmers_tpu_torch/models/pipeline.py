@@ -25,6 +25,7 @@ import numpy as np
 
 from ..core.config import Config
 from ..io import formats
+from ..parallel import distributed
 from ..table import (BucketKmerTable, CmphKmerTable, KmerTable,
                      WideKmerTable, table_from_stats)
 from ..table.kmer_table import pack_values
@@ -103,7 +104,16 @@ def run_build(
     (a rerun resumes from it); nudb_file, perfect_hash (and
     perfect_hash_data, default <perfect_hash>.data) name the reference
     stores to write, relative paths under kmer_data_dir; otu_file fills
-    otu.index."""
+    otu.index.
+
+    On a mesh that spans processes every rank runs the build on the same
+    inputs and gets the same kept set; rank 0 alone writes the artifacts
+    (and runs the recall), the others write nothing."""
+    if (mesh is not None and mesh.spans_processes
+            and not distributed.is_main()):
+        kmer_data_dir = final_kmers = kept_log = None
+        nudb_file = perfect_hash = None
+        checkpoint = False
     timings: dict[str, float] = {}
     verbose = bool(os.environ.get("SKT_BUILD_TIMING"))
 

@@ -483,7 +483,9 @@ class SignatureBuilder:
         """Selection pass over the collected sequences; with a mesh, the
         sequences are split over its dp shards and each window routed to
         its k-mer's owner shard (parallel/build_step.py), on the mesh's
-        devices whatever use_device says (the JAX package's choice)."""
+        devices whatever use_device says (the JAX package's choice).  On
+        a mesh that spans processes every rank passes the same sequences
+        and gets the same kept arrays and statistics."""
         chunks = self._seq_chunks
         self._seq_chunks = []
         if not chunks:

@@ -1,4 +1,5 @@
-"""The sharded build step on a (dp, tp) mesh of one process.
+"""The sharded build step on a (dp, tp) mesh, of one process or spanning
+processes.
 
 Scheme (the collective form of the reference's single-process TBB
 multimap, signature_build.h:61):
@@ -11,9 +12,9 @@ multimap, signature_build.h:61):
      a stable order by owner, the bucket counts, and a gather of each
      (source, owner) bucket, sized by its count;
   3. the exchange: each owner receives its buckets from every source in
-     source order (a copy to the owner's cell, none where the cells share
-     a device), so a k-mer's whole occurrence set lands on one shard and
-     its statistics are exact;
+     source order, as one 24-byte record a window (an all_to_all_uneven,
+     the identity in one process), so a k-mer's whole occurrence set
+     lands on one shard and its statistics are exact;
   4. each owner runs the one-device selection on what it received: the
      two sorts and kernel 7 (ops/build_select.py), which returns the kept
      signatures' words in k-mer order and a flag per sequence;
@@ -23,7 +24,16 @@ multimap, signature_build.h:61):
 
 The windows carry a sequence index that is global over the corpus, so
 the owners' flags index one sequence-id array.  With tp > 1 each dp row
-runs on its first cell.  bucket_cap keeps the JAX package's meaning: an
+runs on its first cell.
+
+On a mesh that spans processes every rank packs the same corpus, extracts
+and routes the sources whose first cell it owns, and the exchange runs
+between ranks: an all_to_all_uneven of the (source, owner) counts over
+the control plane, then one of the records over the device plane; each
+owner rank runs the sorts and kernel 7 on what it received.  finalize_sharded and kept_sids bring every owner's
+words and flags to every rank (fetch_global), so every rank finalizes the
+same kept set.  Ranks of a row but not its first cell take part with
+empty splits.  bucket_cap keeps the JAX package's meaning: an
 entry whose rank in its (source, owner) bucket is cap or more is dropped.
 The windows travel as build_extract's sort keys: key_f and key_o (int64),
 plen and seq (int32), 24 bytes each.
@@ -32,25 +42,35 @@ plen and seq (int32), 24 bytes each.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from ..ops import build_extract, build_select, hashing, kmer_pack
+from . import distributed
 from .mesh import dp_cells
 
 SENTINEL = np.uint32(0xFFFFFF)  # > max valid word 0xCF3CF3 (4x code 51)
+
+
+# the last exchange: bytes sent (all ranks' records, this rank's, and the
+# part of this rank's that left it) and this rank's seconds in the
+# records' all_to_all (read by chip_smoke.py's phases 3i and 3j)
+exchange_stats: dict = {}
 
 
 @dataclasses.dataclass
 class ShardedSelection:
     """build_step_*'s result: each owner shard's kept words ((n, 4)
     int32, ascending k-mer) and sequence flags ((n_seqs,) uint8), on its
-    cell, and the sequence id of each global sequence index."""
+    cell (None where another process owns the shard), the sequence id of
+    each global sequence index, and the mesh."""
 
     words: list
     flags: list
     sids: np.ndarray
+    mesh: object = None
 
 
 def _grid(x: int, lo: int = 256) -> int:
@@ -164,38 +184,116 @@ def route(windows, ndp: int, cap: int | None = None, keep=None):
     return buckets
 
 
-def exchange(buckets, cells) -> list:
-    """buckets[s][o] (source s's bucket for owner o) -> what each owner
-    receives: the four fields of its buckets from every source, in
-    source order, on its cell."""
-    return [tuple(torch.cat([buckets[s][o][f].to(cells[o])
-                             for s in range(len(buckets))])
-                  for f in range(4))
-            for o in range(len(cells))]
+RECORD_WORDS = 6  # key_f, key_o (two int32 words each), plen, seq
 
 
-def _route_and_select(windows: list, cells, n_seqs: int, cap,
+def _pack_records(w) -> torch.Tensor:
+    """(key_f, key_o, plen, seq) -> (n, 6) int32 records."""
+    n = w[0].shape[0]
+    return torch.cat([w[0].view(torch.int32).view(n, 2),
+                      w[1].view(torch.int32).view(n, 2),
+                      w[2].view(n, 1), w[3].view(n, 1)], dim=1)
+
+
+def _unpack_records(r: torch.Tensor) -> tuple:
+    n = r.shape[0]
+    return (r[:, 0:2].contiguous().view(torch.int64).view(n),
+            r[:, 2:4].contiguous().view(torch.int64).view(n),
+            r[:, 4].contiguous(), r[:, 5].contiguous())
+
+
+def exchange(mesh, buckets: dict) -> dict:
+    """buckets[s][o] (this process's source s, any owner o) -> {owner o of
+    this process: the four fields of its buckets from every source, in
+    source order, on o's cell}.  First the (source, owner) counts go to
+    each owner's rank (all_to_all_uneven over the control plane: they are
+    the split sizes), then the windows as (n, 6) int32 records in one
+    all_to_all_uneven over the device plane, from this process's first
+    cell.  In one process both are the identity: the records are packed
+    and unpacked on the cells.  Empties buckets once they are packed."""
+    ndp = mesh.shape["dp"]
+    g = mesh.all_group() or distributed.Group((distributed.process_index(),))
+    owner_rank = [mesh.ranks[o][0] for o in range(ndp)]
+    me = distributed.process_index()
+    mine = sorted(buckets)
+    home = mesh.home
+    # what goes to each rank q: for each owner of q, each of my sources
+    pieces, counts, splits = [], [], []
+    for q in g.ranks:
+        n_q = 0
+        for o in range(ndp):
+            if owner_rank[o] != q:
+                continue
+            for s in mine:
+                b = buckets[s][o]
+                counts.append(b[0].shape[0])
+                n_q += b[0].shape[0]
+                pieces.append(_pack_records(b).to(home))
+        splits.append(n_q)
+    buckets.clear()
+    per_q = [sum(1 for o in range(ndp) if owner_rank[o] == q) * len(mine)
+             for q in g.ranks]
+    got_n, _ = distributed.all_to_all_uneven(
+        torch.tensor(counts, dtype=torch.int64), per_q, g, control=True)
+    recs = (torch.cat(pieces) if pieces else
+            torch.zeros((0, RECORD_WORDS), dtype=torch.int32, device=home))
+    del pieces
+    if home.type == "cuda":
+        torch.cuda.synchronize(home)
+    t0 = time.perf_counter()
+    got, _ = distributed.all_to_all_uneven(recs, splits, g)
+    if home.type == "cuda":
+        torch.cuda.synchronize(home)
+    total = distributed.all_reduce_sum(
+        torch.tensor([recs.shape[0]], dtype=torch.int64), g, control=True)
+    exchange_stats.update(
+        bytes=int(total) * RECORD_WORDS * 4,
+        rank_bytes=recs.shape[0] * RECORD_WORDS * 4,
+        sent_off_rank=(recs.shape[0] - splits[g.ranks.index(me)])
+        * RECORD_WORDS * 4,
+        seconds=time.perf_counter() - t0)
+    del recs
+    # what came from each rank p: for each of my owners, each of p's
+    # sources, in that order
+    got_n = got_n.tolist()
+    my_owners = [o for o in range(ndp) if owner_rank[o] == me]
+    src_of = {p: [s for s in range(ndp) if mesh.ranks[s][0] == p]
+              for p in g.ranks}
+    parts = {o: [] for o in my_owners}
+    a = c = 0
+    for p in g.ranks:
+        for o in my_owners:
+            for _s in src_of[p]:
+                n = got_n[c]
+                c += 1
+                parts[o].append(got[a:a + n])
+                a += n
+    return {o: _unpack_records(torch.cat(parts.pop(o)).to(
+        mesh.devices[o][0])) for o in my_owners}
+
+
+def _route_and_select(mesh, windows: dict, n_seqs: int, cap,
                       threshold: float, keep=None) -> tuple[list, list]:
-    """Route every source's windows, exchange, select on each owner.
-    Empties windows as it goes: each source's windows are freed once
-    they are in its buckets."""
+    """Route this process's sources' windows ({source: windows}),
+    exchange, select on each owner of this process.  Empties windows as
+    it goes: each source's windows are freed once they are in its
+    buckets.  -> (words, flags), per owner, None on another process's."""
+    cells = dp_cells(mesh)
     ndp = len(cells)
-    buckets = []
-    for s in range(len(windows)):
-        buckets.append(route(windows[s], ndp, cap,
-                             None if keep is None else keep[s]))
+    buckets = {}
+    for s in sorted(windows):
+        buckets[s] = route(windows[s], ndp, cap,
+                           None if keep is None else keep[s])
         windows[s] = None
-    received = exchange(buckets, cells)
+    received = exchange(mesh, buckets)
     del buckets
-    words, flags = [], []
-    for o in range(ndp):
+    words, flags = [None] * ndp, [None] * ndp
+    for o in sorted(received):
         # the sorts and kernel 7 on what the owner received
         k1s, plen_s, seq_s, k2s = build_select.sort_windows(*received[o])
         received[o] = None
-        w, f = build_select.build_select_runs(k1s, plen_s, k2s, seq_s,
-                                              n_seqs, threshold)
-        words.append(w)
-        flags.append(f)
+        words[o], flags[o] = build_select.build_select_runs(
+            k1s, plen_s, k2s, seq_s, n_seqs, threshold)
     return words, flags
 
 
@@ -212,8 +310,10 @@ def build_step_sharded(mesh, hi, lo, func, off, plen, sid,
     assert n % ndp == 0, (n, ndp)
     n_local = n // ndp
     sids, seq = np.unique(np.asarray(sid), return_inverse=True)
-    windows, keep = [], []
+    windows, keep = {}, {}
     for s, cell in enumerate(cells):
+        if not mesh.is_local(s, 0):
+            continue
         sl = slice(s * n_local, (s + 1) * n_local)
         h = np.asarray(hi[sl], np.uint32)
         valid = h != SENTINEL
@@ -222,13 +322,13 @@ def build_step_sharded(mesh, hi, lo, func, off, plen, sid,
             .astype(np.int64)).to(cell)
         kmer = (put(hi) << 24) | put(lo)
         f = put(func)
-        windows.append((build_extract.window_keys(kmer, f),
-                        build_extract.window_keys(kmer, put(off)),
-                        put(plen).to(torch.int32), put(seq).to(torch.int32)))
-        keep.append(f >= 0)
-    words, flags = _route_and_select(windows, cells, sids.shape[0],
+        windows[s] = (build_extract.window_keys(kmer, f),
+                      build_extract.window_keys(kmer, put(off)),
+                      put(plen).to(torch.int32), put(seq).to(torch.int32))
+        keep[s] = f >= 0
+    words, flags = _route_and_select(mesh, windows, sids.shape[0],
                                      bucket_cap, threshold, keep)
-    return ShardedSelection(words, flags, sids)
+    return ShardedSelection(words, flags, sids, mesh)
 
 
 def build_step_from_seqs_arrays(mesh, packed, starts, fidxs, plens, sids,
@@ -237,17 +337,18 @@ def build_step_from_seqs_arrays(mesh, packed, starts, fidxs, plens, sids,
                                 ) -> ShardedSelection:
     """The sharded selection from pack_corpus_sharded's stacked arrays:
     packed (ndp, Rl*16), starts, fidxs, plens, sids (ndp, Bg).  Kernel 6
-    per shard on its cell, then the routing, the exchange and kernel 7
-    per owner.  The global sequence index of shard s's b-th entry is
-    s * Bg + b."""
+    per shard on its cell (this process's shards), then the routing, the
+    exchange and kernel 7 per owner.  The global sequence index of shard
+    s's b-th entry is s * Bg + b."""
     cells = dp_cells(mesh)
     Bg = starts.shape[1]
-    windows = [extract_shard(*upload_shard(cell, packed[s], starts[s],
-                                           fidxs[s], plens[s]), s * Bg)
-               for s, cell in enumerate(cells)]
-    words, flags = _route_and_select(windows, cells, len(cells) * Bg,
+    windows = {s: extract_shard(*upload_shard(cell, packed[s], starts[s],
+                                              fidxs[s], plens[s]), s * Bg)
+               for s, cell in enumerate(cells) if mesh.is_local(s, 0)}
+    words, flags = _route_and_select(mesh, windows, len(cells) * Bg,
                                      bucket_cap, threshold)
-    return ShardedSelection(words, flags, np.asarray(sids).reshape(-1))
+    return ShardedSelection(words, flags, np.asarray(sids).reshape(-1),
+                            mesh)
 
 
 def build_step_from_seqs(mesh, codes, sids, fidxs, plens,
@@ -267,29 +368,55 @@ def merge_words(words: list, device) -> torch.Tensor:
     """The owners' kept words on one device, in ascending k-mer order
     (each owner's are; their k-mer sets are disjoint)."""
     w = torch.cat([x.to(device) for x in words])
-    if len(words) == 1:
-        return w
+    return w if len(words) == 1 else sort_words(w)
+
+
+def sort_words(w: torch.Tensor) -> torch.Tensor:
+    """Kept words in ascending k-mer order."""
     u = w[:, :2].to(torch.int64) & 0xFFFF_FFFF
     return w[torch.sort((u[:, 0] << 16) | (u[:, 1] >> 16)).indices]
+
+
+def _local(xs: list) -> list:
+    return [x for x in xs if x is not None]
 
 
 def finalize_sharded(outputs: ShardedSelection) -> dict:
     """The kept arrays (hi, lo, avg_from_end, function_index, mean,
     median, var), sorted by k-mer: the owners' words merged on the first
-    cell, fetched once and unpacked on the host."""
+    cell, fetched once and unpacked on the host.  On a mesh that spans
+    processes each rank merges its owners' words, the pieces reach every
+    rank (fetch_global) and are merged again there."""
     from ..models.signature_builder import kept_from_words
 
-    dev = outputs.words[0].device
-    kept = kept_from_words(merge_words(outputs.words, dev).cpu().numpy())
+    mine = _local(outputs.words)
+    mesh = outputs.mesh
+    if mesh is not None and mesh.spans_processes:
+        dev = mesh.home
+        local = (merge_words(mine, dev) if mine else
+                 torch.zeros((0, 4), dtype=torch.int32, device=dev))
+        every = distributed.fetch_global(local, mesh.all_group())
+        words = sort_words(torch.from_numpy(every).to(dev)).cpu().numpy()
+    else:
+        words = merge_words(mine, mine[0].device).cpu().numpy()
+    kept = kept_from_words(words)
     return {f.name: getattr(kept, f.name) for f in dataclasses.fields(kept)}
 
 
 def kept_sids(outputs: ShardedSelection) -> np.ndarray:
     """The ids of the sequences with an entry in a kept group on any
-    owner, in sequence-index order."""
-    dev = outputs.flags[0].device
-    any_kept = torch.zeros(outputs.flags[0].shape[0], dtype=torch.bool,
-                           device=dev)
-    for f in outputs.flags:
+    owner, in sequence-index order (on a mesh that spans processes, the
+    ranks' flags OR-ed after a fetch_global)."""
+    mine = _local(outputs.flags)
+    mesh = outputs.mesh
+    n = outputs.sids.shape[0]
+    dev = mine[0].device if mine else mesh.home
+    any_kept = torch.zeros(n, dtype=torch.bool, device=dev)
+    for f in mine:
         any_kept |= f.to(dev).bool()
+    if mesh is not None and mesh.spans_processes:
+        every = distributed.fetch_global(
+            any_kept.to(torch.uint8) if mine else any_kept[:0].to(
+                torch.uint8), mesh.all_group())
+        return outputs.sids[every.reshape(-1, n).any(axis=0)]
     return outputs.sids[any_kept.cpu().numpy()]

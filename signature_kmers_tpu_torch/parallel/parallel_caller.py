@@ -16,6 +16,14 @@ over a (dp, tp) mesh (parallel/mesh.py):
 - one device->host copy per dp row and round, then FunctionCaller's host
   finalize.
 
+On a mesh that spans processes (parallel/distributed.py) every rank passes
+the same batch, places (from_table) and probes only its own cells' shards, and the rows
+that span ranks sum their int32 views over the row's process group
+(combine_row); the automaton runs on each row's first cell, and the rows'
+packed blocks are all-gathered at the end of the dispatch, so every rank's
+collect_batch is a local read, as the JAX program's scatter + psum leaves
+its result replicated.
+
 This is the in-process replacement for the reference's "run many binaries
 on disjoint files" scaling (SURVEY §2.5).  Each shard is a table of the
 single-device layouts (WideKmerTable, BucketKmerTable), so every probe is
@@ -25,6 +33,7 @@ a kernel the single-device path runs.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core.config import CallConfig, DeviceConfig, TableConfig
 from ..io import fasta as fasta_io
@@ -33,25 +42,35 @@ from ..ops import hashing, kmer_pack, probe
 from ..table import wide_table as wt
 from ..table.bucket_table import EMPTY, BucketKmerTable
 from ..table.wide_table import WideKmerTable
-from . import mesh as mesh_mod
-from .sharded_table import combine_tp, owner_of, split_rows
+from . import distributed, mesh as mesh_mod
+from .sharded_table import combine_row, owner_of, share_rows, split_rows
 
 
 def _occupied_slots(packed, slots: int) -> int:
     return int(np.count_nonzero(packed[:, :slots] != EMPTY))
 
 
+def _agree_max(g, x: int) -> int:
+    """The largest of the group's ranks' x: the common size of shards
+    placed on different processes (x itself when g is None)."""
+    return int(x) if g is None else max(distributed.gather_objects(int(x),
+                                                                   g))
+
+
 class ShardedBucketTable:
     """Per-shard BucketKmerTables stacked (tp, n_buckets, 3*slots).
 
     Each shard carries its own cuckoo salt (builds converge
-    independently)."""
+    independently).  placed: the shards the arrays hold, in order (every
+    shard, unless from_table was asked for some)."""
 
-    def __init__(self, packed, salts, n_items: int, aux=None):
-        self.packed = packed  # (tp, nb, 3*slots)
-        self.salts = salts    # (tp,) uint32
+    def __init__(self, packed, salts, n_items: int, aux=None, placed=None):
+        self.packed = packed  # (placed, nb, 3*slots)
+        self.salts = salts    # (placed,) uint32
         self.n_items = n_items
-        self.aux = aux        # (tp, nb, 3*slots) value words
+        self.aux = aux        # (placed, nb, 3*slots) value words
+        self.placed = (tuple(range(packed.shape[0])) if placed is None
+                       else tuple(placed))
 
     @property
     def n_shards(self):
@@ -62,8 +81,11 @@ class ShardedBucketTable:
         return int(self.packed.shape[1])
 
     @staticmethod
-    def from_table(table: BucketKmerTable, n_shards: int
-                   ) -> "ShardedBucketTable":
+    def from_table(table: BucketKmerTable, n_shards: int, only=None,
+                   g=None) -> "ShardedBucketTable":
+        """only: the shards to place (default every one); g: the group of
+        the ranks that place the others, with whom the bucket count is
+        agreed (every shard has the same)."""
         assert n_shards & (n_shards - 1) == 0
         hi, lo, v0, v1, v2 = table.occupied()
         if n_shards == 1:
@@ -72,6 +94,7 @@ class ShardedBucketTable:
                 np.asarray([table.salt], dtype=np.uint32), table.n_items,
                 aux=table.aux[None])
         owner = owner_of(hi, lo, n_shards)
+        placed = range(n_shards) if only is None else sorted(only)
         # two-pass sizing: build every shard once at the largest shard's
         # bucket count, then rebuild only the shards that came out smaller
         # at the common (max) count, repeated until all agree (a
@@ -80,31 +103,35 @@ class ShardedBucketTable:
         counts = np.bincount(owner, minlength=n_shards)
         nb0 = max(TableConfig().min_size // slots,
                   hashing.next_pow2(-(-int(counts.max()) // 3)))
-        masks = [owner == s for s in range(n_shards)]
 
         def build(s, nb):
-            m = masks[s]
+            m = owner == s
             return BucketKmerTable.build(hi[m], lo[m], v0[m], v1[m], v2[m],
                                          TableConfig(min_size=nb * slots))
 
-        parts = [build(s, nb0) for s in range(n_shards)]
-        nb = max(t.n_buckets for t in parts)
-        parts = [t if t.n_buckets == nb else build(s, nb)
-                 for s, t in enumerate(parts)]
-        while any(t.n_buckets != nb for t in parts):
-            nb = max(t.n_buckets for t in parts)
-            parts = [t if t.n_buckets == nb else build(s, nb)
-                     for s, t in enumerate(parts)]
+        parts = {s: build(s, nb0) for s in placed}
+        nb = _agree_max(g, max(t.n_buckets for t in parts.values()))
+        while True:
+            # a rebuild at nb has at least nb buckets: the shards agree
+            # when the largest is nb
+            parts = {s: t if t.n_buckets == nb else build(s, nb)
+                     for s, t in parts.items()}
+            top = _agree_max(g, max(t.n_buckets for t in parts.values()))
+            if top == nb:
+                break
+            nb = top
         return ShardedBucketTable(
-            np.stack([t.packed for t in parts]),
-            np.asarray([t.salt for t in parts], dtype=np.uint32),
-            int(hi.shape[0]), aux=np.stack([t.aux for t in parts]))
+            np.stack([t.packed for t in parts.values()]),
+            np.asarray([t.salt for t in parts.values()], dtype=np.uint32),
+            int(hi.shape[0]), aux=np.stack([t.aux for t in parts.values()]),
+            placed=list(parts))
 
     def shard(self, s: int) -> BucketKmerTable:
         """Shard s as a table of the single-device layout."""
+        i = self.placed.index(s)
         return BucketKmerTable(
-            self.packed[s], self.aux[s], int(self.salts[s]),
-            _occupied_slots(self.packed[s], self.packed.shape[2] // 3))
+            self.packed[i], self.aux[i], int(self.salts[i]),
+            _occupied_slots(self.packed[i], self.packed.shape[2] // 3))
 
 
 class ShardedWideTable:
@@ -112,28 +139,37 @@ class ShardedWideTable:
 
     Shards share bits, ov_bits and slot widths so the arrays stack; salts
     vary per shard.  The overflow stores take one common (ov_bits,
-    largest occupancy) shape."""
+    largest occupancy) shape.  placed: the shards the arrays hold, in
+    order (every shard, unless from_table was asked for some)."""
 
     def __init__(self, packed, ov_packed, salts, ov_salts,
                  bits: int, ov_bits: int, n_items: int, ov_any: bool,
-                 aux=None, ov_aux=None):
-        self.packed = packed        # (tp, nb, 2*S)
-        self.ov_packed = ov_packed  # (tp, nbo, 2*So)
-        self.salts = salts          # (tp,) uint32
-        self.ov_salts = ov_salts    # (tp,) uint32
+                 aux=None, ov_aux=None, placed=None):
+        self.packed = packed        # (placed, nb, 2*S)
+        self.ov_packed = ov_packed  # (placed, nbo, 2*So)
+        self.salts = salts          # (placed,) uint32
+        self.ov_salts = ov_salts    # (placed,) uint32
         self.bits = bits
         self.ov_bits = ov_bits
         self.n_items = n_items
         self.ov_any = ov_any
-        self.aux = aux              # (tp, nb, 3*S) value words
-        self.ov_aux = ov_aux        # (tp, nbo, 3*So)
+        self.aux = aux              # (placed, nb, 3*S) value words
+        self.ov_aux = ov_aux        # (placed, nbo, 3*So)
+        self.placed = (tuple(range(packed.shape[0])) if placed is None
+                       else tuple(placed))
 
     @property
     def n_shards(self):
         return int(self.packed.shape[0])
 
     @staticmethod
-    def from_table(table: WideKmerTable, n_shards: int) -> "ShardedWideTable":
+    def from_table(table: WideKmerTable, n_shards: int, only=None,
+                   g=None) -> "ShardedWideTable":
+        """only: the shards to place (default every one); g: the group of
+        the ranks that place the others.  The main geometry follows the
+        global counts, which every rank has; the overflow leaves' (the
+        largest leftover, the largest leaf bucket) are agreed over g, so
+        every shard has the same shape wherever it was placed."""
         assert n_shards & (n_shards - 1) == 0
         if n_shards == 1:
             return ShardedWideTable(
@@ -146,6 +182,7 @@ class ShardedWideTable:
         hi, lo, v0, v1, v2 = table.occupied()
         owner = owner_of(hi, lo, n_shards)
         counts = np.bincount(owner, minlength=n_shards)
+        placed = list(range(n_shards) if only is None else sorted(only))
         cfg = wt.WideTableConfig()
         S_def = cfg.slots
         want = int(int(counts.max()) / (S_def * cfg.main_load)) + 1
@@ -166,7 +203,7 @@ class ShardedWideTable:
 
         def build_at(S, bits):
             mains, main_auxes, leftovers = [], [], []
-            for s in range(n_shards):
+            for s in placed:
                 m = owner == s
                 packed_s, aux_s, lx = wt._place_tagged(
                     hi[m], lo[m], v0[m], v1[m], v2[m], bits,
@@ -175,18 +212,18 @@ class ShardedWideTable:
                 main_auxes.append(aux_s)
                 leftovers.append((hi[m][lx], lo[m][lx], v0[m][lx],
                                   v1[m][lx], v2[m][lx]))
-            salts = np.full(n_shards, wt._SALT_BASE, dtype=np.uint32)
-            nmax = max(lf[0].shape[0] for lf in leftovers)
+            n = len(placed)
+            salts = np.full(n, wt._SALT_BASE, dtype=np.uint32)
+            nmax = _agree_max(g, max(lf[0].shape[0] for lf in leftovers))
             if not nmax:
                 return ShardedWideTable(
                     np.stack(mains),
-                    np.stack([np.full((1, 2), wt.EMPTY, np.uint32)]
-                             * n_shards),
-                    salts, np.full(n_shards, wt._SALT_BASE, np.uint32),
+                    np.stack([np.full((1, 2), wt.EMPTY, np.uint32)] * n),
+                    salts, np.full(n, wt._SALT_BASE, np.uint32),
                     bits, 17, int(hi.shape[0]), False,
                     aux=np.stack(main_auxes),
-                    ov_aux=np.stack([np.zeros((1, 3), np.uint32)]
-                                    * n_shards))
+                    ov_aux=np.stack([np.zeros((1, 3), np.uint32)] * n),
+                    placed=placed)
             # >= 17: wide_bucket_tag's tag/sentinel exactness bound (the
             # JAX package widens ov_bits when leaf_salt returns None,
             # which it never does)
@@ -194,7 +231,7 @@ class ShardedWideTable:
                 max(nmax / wt._OV_LAMBDA, 1)))))
             return ShardedWideTable._with_leaves(
                 mains, main_auxes, salts, leftovers, bits, ov_bits,
-                int(hi.shape[0]))
+                int(hi.shape[0]), placed, g)
 
         t = build_at(S, bits)
         if chose_sub and t.ov_packed[0].nbytes > sub:
@@ -204,11 +241,11 @@ class ShardedWideTable:
 
     @staticmethod
     def _with_leaves(mains, main_auxes, salts, leftovers, bits, ov_bits,
-                     n_items):
+                     n_items, placed, g):
         chosen = [wt.leaf_salt(lf[0], lf[1], ov_bits)
                   if lf[0].shape[0] else (wt._SALT_BASE, 1)
                   for lf in leftovers]
-        S_ov = max(1, max(mx for _, mx in chosen))
+        S_ov = max(1, _agree_max(g, max(mx for _, mx in chosen)))
         ovs, ov_auxes = [], []
         for lf, (salt_s, _mx) in zip(leftovers, chosen):
             p, a, rest = wt._place_tagged(*lf, ov_bits, salt_s, S_ov)
@@ -219,19 +256,20 @@ class ShardedWideTable:
             np.stack(mains), np.stack(ovs), salts,
             np.asarray([s for s, _ in chosen], dtype=np.uint32),
             bits, ov_bits, n_items, True, aux=np.stack(main_auxes),
-            ov_aux=np.stack(ov_auxes))
+            ov_aux=np.stack(ov_auxes), placed=placed)
 
     def shard(self, s: int) -> WideKmerTable:
         """Shard s as a table of the single-device layout (its leaf probed
         only when it holds keys)."""
-        ov_items = (_occupied_slots(self.ov_packed[s],
+        i = self.placed.index(s)
+        ov_items = (_occupied_slots(self.ov_packed[i],
                                     self.ov_packed.shape[2] // 2)
                     if self.ov_any else 0)
         return WideKmerTable(
-            self.packed[s], self.aux[s], self.ov_packed[s], self.ov_aux[s],
-            int(self.salts[s]), self.bits, int(self.ov_salts[s]),
+            self.packed[i], self.aux[i], self.ov_packed[i], self.ov_aux[i],
+            int(self.salts[i]), self.bits, int(self.ov_salts[i]),
             self.ov_bits,
-            _occupied_slots(self.packed[s], self.packed.shape[2] // 2)
+            _occupied_slots(self.packed[i], self.packed.shape[2] // 2)
             + ov_items, ov_items)
 
 
@@ -244,24 +282,28 @@ class ParallelFunctionCaller(FunctionCaller):
                  mesh=None):
         mesh = mesh if mesh is not None else mesh_mod.make_mesh()
         super().__init__(table, function_index, config, device_config,
-                         device=mesh.devices[0][0])
+                         device=mesh.home)
         self.mesh = mesh
         self.ndp = mesh_mod.dp_size(mesh)
         self.ntp = mesh_mod.tp_size(mesh)
-        if isinstance(table, WideKmerTable):
-            self.stable = ShardedWideTable.from_table(table, self.ntp)
-        else:
-            self.stable = ShardedBucketTable.from_table(table, self.ntp)
-        self.shards = [self.stable.shard(t) for t in range(self.ntp)]
+        # this process's shards only: those of its cells' tp columns
+        sharded = (ShardedWideTable if isinstance(table, WideKmerTable)
+                   else ShardedBucketTable)
+        self.stable = sharded.from_table(
+            table, self.ntp, {t for _d, t, _dev in mesh.local_cells()},
+            mesh.all_group())
+        self.shards = [self.stable.shard(t) if t in self.stable.placed
+                       else None for t in range(self.ntp)]
         # each cell's shard words, uploaded at first use (cell_tables)
         self._cells = {}
 
     def cell_tables(self, kind: str = "probe") -> list:
         """cells[d][t]: shard t's words on device (d, t), each cell its
         own tensors, uploaded once per caller (the sharded table is
-        immutable; /add builds a new caller).  kind: "probe" (the layout's
-        to_device), "aux" (the probe words, then aux_to_device) or
-        "distance" (a wide shard's distance rows)."""
+        immutable; /add builds a new caller); None on another process's
+        cell.  kind: "probe" (the layout's to_device), "aux" (the probe
+        words, then aux_to_device) or "distance" (a wide shard's distance
+        rows)."""
         cells = self._cells.get(kind)
         if cells is None:
             # the aux words join the probe words, which come up first
@@ -279,6 +321,7 @@ class ParallelFunctionCaller(FunctionCaller):
               "aux": lambda s, dev: s.aux_to_device(dev),
               "distance": lambda s, dev: s.distance_rows_to_device(dev)}[kind]
         return [[(base[d][t] if base else ()) + up(shard, dev)
+                 if self.mesh.is_local(d, t) else None
                  for t, (dev, shard) in enumerate(zip(row, self.shards))]
                 for d, row in enumerate(self.mesh.devices)]
 
@@ -323,18 +366,30 @@ class ParallelFunctionCaller(FunctionCaller):
                     ids=batch.ids[ds:de],
                     deflines=batch.deflines[ds:de],
                 )
-                pending.append((sub, self._dispatch_row(d, sub)))
+                pending.append((sub, d, self._dispatch_row(d, sub)))
+        if self.mesh.spans_processes:
+            # the rows' blocks on every rank: collect_batch reads locally
+            blocks = distributed.share({
+                i: out for i, (_s, _d, out) in enumerate(pending)
+                if out is not None}, self.mesh.all_group(), self.device)
+            pending = [(sub, d, blocks[i])
+                       for i, (sub, d, _o) in enumerate(pending)]
         return ("mesh", order, pending)
 
     def _dispatch_row(self, d: int, sub: fasta_io.SequenceBatch):
         """One dp row's share of a round: pack and probe on each of the
-        row's devices, combine, automaton on its first device -> the
-        (rows, 13) packed block there."""
+        row's devices of this process, combine (combine_row), automaton on
+        the row's first device -> the (rows, 13) packed block there, or
+        None on a process that does not own that device."""
+        mine = self.mesh.local_columns(d)
+        if not mine:
+            return None
         *host, L, W = self._chunk_rows(sub)
         cells = self.cell_tables()[d]
         parts = []
         home_lengths = None
-        for t, dev in enumerate(self.mesh.devices[d]):
+        for t in mine:
+            dev = self.mesh.devices[d][t]
             t_rows = tuple(self._to_device(a, dev) for a in host)
             if home_lengths is None:
                 home_lengths = t_rows[2]
@@ -342,7 +397,10 @@ class ParallelFunctionCaller(FunctionCaller):
             fn, geometry = probe.table_probe(self.shards[t])
             parts.append(fn(hi, lo, valid, *cells[t], **geometry,
                             ignore_function=self._ignore_function()))
-        found, fm = combine_tp(parts, self.mesh.devices[d][0])
+        found, fm = combine_row(self.mesh, d, parts,
+                                self.mesh.devices[d][mine[0]])
+        if mine[0] != 0:
+            return None
         return self._automaton(found, fm, home_lengths)
 
     def collect_batch(self, handle):
@@ -352,7 +410,7 @@ class ParallelFunctionCaller(FunctionCaller):
             return handle[1]
         _tag, order, pending = handle
         results = []
-        for sub, out in pending:
+        for sub, _d, out in pending:
             results.extend(self._finalize_device(sub, out))
         if order is not None:
             results = self._restore_order(results, order)
@@ -374,22 +432,27 @@ class ParallelFunctionCaller(FunctionCaller):
         """The hit probe over the mesh: each dp row's share probed against
         every shard on the row's devices (the single-device probes:
         probe_wide_aux on wide shards with aux, else the pack and the
-        shard's probe), combined on the row's first device, rows
-        concatenated on the host."""
+        shard's probe), combined on the row's first device (combine_row),
+        the rows on every rank (share_rows) and concatenated on the
+        host."""
         cells = self.cell_tables("aux" if need_aux else "probe")
-        blocks = []
+        blocks = {}
         for d, a, b, c, o in self._row_blocks(codes, offsets, rows):
-            parts = [gather_probe(shard, self.transfer_rows(c, o, b - a, L,
-                                                            dev),
-                                  L, cells[d][t], need_aux)
-                     for t, (dev, shard) in enumerate(zip(
-                         self.mesh.devices[d], self.shards))]
-            blocks.append([x.cpu().numpy() for x in
-                           combine_tp(parts, self.mesh.devices[d][0])])
+            mine = self.mesh.local_columns(d)
+            if not mine:
+                continue
+            parts = [gather_probe(self.shards[t], self.transfer_rows(
+                c, o, b - a, L, self.mesh.devices[d][t]), L, cells[d][t],
+                need_aux) for t in mine]
+            out = combine_row(self.mesh, d, parts,
+                              self.mesh.devices[d][mine[0]])
+            blocks[d] = torch.stack([x.to(torch.int32) for x in out])
+        blocks = share_rows(self.mesh, blocks, torch.device("cpu"))
         if not blocks:
             return super()._gather_words(codes, offsets, rows, L, need_aux)
-        return [np.concatenate([blk[k] for blk in blocks])
-                for k in range(len(blocks[0]))]
+        x = np.concatenate([blocks[d].cpu().numpy() for d in sorted(blocks)],
+                           axis=1)
+        return [x[0] != 0] + [x[k] for k in range(1, x.shape[0])]
 
     def gather_found_filtered(self, codes: np.ndarray, lengths: np.ndarray,
                               hypo_index: int, len_sigma_window: float,
@@ -399,7 +462,8 @@ class ParallelFunctionCaller(FunctionCaller):
         on the devices and only the mask comes back.  Wide shards run
         probe_wide_distance on their distance rows, other layouts the
         pack, the aux probe and probe.distance_filter; each dp row's tp
-        masks are combined by OR.  -> (B, L) bool."""
+        masks are combined (combine_row) and the rows shared with every
+        rank (share_rows).  -> (B, L) bool."""
         B, L = codes.shape
         lengths = np.minimum(np.asarray(lengths, np.int64), L)
         offsets = np.zeros(B + 1, np.int64)
@@ -412,12 +476,15 @@ class ParallelFunctionCaller(FunctionCaller):
         cells = self.cell_tables("distance" if wide else "aux")
         k = self.config.k
         mask = np.zeros((B, L), dtype=bool)
+        masks, spans = {}, {}
         for d, a, b, c, o in self._row_blocks(flat, offsets, B):
             nat = int(lengths[a:b].max())
             W = min(L, max(16, -(-(max(nat, k) - k + 1) // 16) * 16))
+            spans[d] = (a, b, W)
+            mine = self.mesh.local_columns(d)
             parts = []
-            for t, (dev, shard) in enumerate(zip(self.mesh.devices[d],
-                                                 self.shards)):
+            for t in mine:
+                dev, shard = self.mesh.devices[d][t], self.shards[t]
                 t_rows = self.transfer_rows(c, o, b - a, L, dev)
                 geometry = probe.table_probe(shard)[1]
                 if wide:
@@ -434,6 +501,10 @@ class ParallelFunctionCaller(FunctionCaller):
                     m = found & probe.distance_filter(fm, r2, t_rows[2],
                                                       **filters)
                 parts.append((m,))
-            mask[a:b, :W] = combine_tp(
-                parts, self.mesh.devices[d][0])[0].cpu().numpy()
+            if mine:
+                masks[d] = combine_row(self.mesh, d, parts,
+                                       self.mesh.devices[d][mine[0]])[0]
+        for d, m in share_rows(self.mesh, masks, torch.device("cpu")).items():
+            a, b, W = spans[d]
+            mask[a:b, :W] = m.cpu().numpy()
         return mask

@@ -6,7 +6,10 @@ independent per-shard open-addressing tables of one common size, stacked
 every shard, one shard per device of the row; since a key lives in one
 shard only, at most one shard reports a hit for a query and writes
 nonzero words, so the row's results combine exactly by OR on its first
-device (the JAX package combines them with a psum over tp).
+device (the JAX package combines them with a psum over tp).  Where a row
+spans processes, each rank probes its own cells' shards and the row sums
+their int32 views over its process group (NCCL has no bitwise OR; the
+sum is exact for the same reason).
 
 This replaces the reference's always-fully-resident table
 (ref: cmph_kmer.h:71-83; the reference has no table sharding at all).
@@ -22,6 +25,7 @@ import torch
 
 from ..core.config import TableConfig
 from ..ops import hashing, probe as probe_ops
+from . import distributed
 from ..table.kmer_table import KmerTable
 
 
@@ -41,6 +45,33 @@ def combine_tp(parts, device) -> tuple:
     return tuple(functools.reduce(torch.bitwise_or,
                                   (p[k].to(device) for p in parts))
                  for k in range(len(parts[0])))
+
+
+def combine_row(mesh, d: int, parts, device) -> tuple:
+    """Dp row d's combine: this process's cells' outputs (parts) by OR on
+    ``device``, then, when the row spans processes, the sum of the ranks'
+    int32 views over the row's group (all_reduce_sum; the JAX package's
+    psum over tp), so every rank of the row holds the row's result."""
+    local = combine_tp(parts, device)
+    g = mesh.row_group(d)
+    if g is None:
+        return local
+    x = distributed.all_reduce_sum(
+        torch.stack([p.to(torch.int32) for p in local]), g)
+    return tuple(x[k] != 0 if p.dtype == torch.bool else x[k].to(p.dtype)
+                 for k, p in enumerate(local))
+
+
+def share_rows(mesh, rows: dict, device) -> dict:
+    """Each dp row's result ({d: tensor}, held by the rank of the row's
+    first cell) on every rank of a process-spanning mesh, on ``device``:
+    the JAX package's scatter + psum over dp, which leaves the result
+    replicated.  One process: rows as they are."""
+    g = mesh.all_group()
+    if g is None:
+        return rows
+    owned = {d: x for d, x in rows.items() if mesh.is_local(d, 0)}
+    return distributed.share(owned, g, device)
 
 
 def split_rows(n: int, ndp: int) -> list:
@@ -99,40 +130,46 @@ class ShardedKmerTable:
     def to_mesh(self, mesh) -> list:
         """The shards on the mesh: cells[d][t] = shard t's five word
         arrays as int32 tensors on device (d, t); shard t goes to every
-        device of tp column t.  The mesh's tp size must be n_shards."""
+        device of tp column t, and only this process's cells are filled
+        (None elsewhere).  The mesh's tp size must be n_shards."""
         if mesh.shape["tp"] != self.n_shards:
             raise ValueError(f"a table of {self.n_shards} shards on a mesh "
                              f"of tp {mesh.shape['tp']}")
         words = (self.key_hi, self.key_lo, self.v0, self.v1, self.v2)
         return [[tuple(torch.from_numpy(np.ascontiguousarray(w[t])
                                         .view(np.int32)).to(dev)
-                       for w in words)
+                       for w in words) if mesh.is_local(d, t) else None
                  for t, dev in enumerate(row)]
-                for row in mesh.devices]
+                for d, row in enumerate(mesh.devices)]
 
 
 def probe_sharded(mesh, cells, qhi, qlo, max_probes: int):
     """Probe a tp-sharded table with dp-split flat queries.
 
     cells: ShardedKmerTable.to_mesh(mesh); qhi, qlo: (M,) int32 tensors
-    (bit containers of the uint32 words).  Row d of the mesh takes the
-    d-th contiguous block of the queries (split_rows), each of its devices
-    probes the block against its shard (ops/probe.probe_table), and the
-    row's results are combined on its first device.  -> (found bool, r0,
-    r1, r2 int32), (M,) each, on the mesh's first device, in query
-    order."""
-    out_dev = mesh.devices[0][0]
-    rows = []
-    for (a, b), row, cell_row in zip(split_rows(qhi.shape[0],
-                                                mesh.shape["dp"]),
-                                     mesh.devices, cells):
-        if a == b:
+    (bit containers of the uint32 words), the same on every rank.  Row d
+    of the mesh takes the d-th contiguous block of the queries
+    (split_rows), each of its (local) devices probes the block against
+    its shard (ops/probe.probe_table), and the row's results are combined
+    (combine_row).  -> (found bool, r0, r1, r2 int32), (M,) each, on this
+    process's first cell, in query order."""
+    out_dev = mesh.home
+    rows = {}
+    for d, ((a, b), row, cell_row) in enumerate(zip(
+            split_rows(qhi.shape[0], mesh.shape["dp"]), mesh.devices,
+            cells)):
+        mine = mesh.local_columns(d)
+        if a == b or not mine:
             continue
-        parts = [probe_ops.probe_table(*tabs, qhi[a:b].to(dev),
-                                       qlo[a:b].to(dev), max_probes)
-                 for dev, tabs in zip(row, cell_row)]
-        rows.append(combine_tp(parts, out_dev))
+        parts = [probe_ops.probe_table(*cell_row[t], qhi[a:b].to(row[t]),
+                                       qlo[a:b].to(row[t]), max_probes)
+                 for t in mine]
+        rows[d] = torch.stack([x.to(torch.int32) for x in
+                               combine_row(mesh, d, parts, out_dev)])
+    rows = share_rows(mesh, rows, out_dev)
     if not rows:
-        return probe_ops.probe_table(*cells[0][0], qhi.to(out_dev),
+        d0, t0, _ = mesh.local_cells()[0]
+        return probe_ops.probe_table(*cells[d0][t0], qhi.to(out_dev),
                                      qlo.to(out_dev), max_probes)
-    return tuple(torch.cat([r[k] for r in rows]) for k in range(4))
+    x = torch.cat([rows[d] for d in sorted(rows)], dim=1)
+    return (x[0] != 0,) + tuple(x[k] for k in range(1, 4))

@@ -31,7 +31,9 @@ device's default stream.
 
 With a mesh (serve --mesh) the caller is a ParallelFunctionCaller over the
 (dp, tp) mesh, /lookup gathers hits over it, and /matrix gathers its mask
-through it and counts pairs over every mesh device.
+through it and counts pairs over every mesh device.  With multihost the
+mesh spans processes: rank 0 serves HTTP and broadcasts each dispatch to
+the other ranks, which run service/multihost.follower_loop.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import dataclasses
 import io
 import os
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -82,12 +85,23 @@ class _QueryBatcher:
     Up to `depth` batches are in flight at once (default 4, env
     SKT_SERVE_DEPTH), each on its own executor thread: while batch N's
     device->host copy and host scoring run, batch N+1's host packing and
-    upload proceed.  All of them issue on the device's default stream."""
+    upload proceed.  All of them issue on the device's default stream.
+
+    Workers beyond the first run only while `min_fill` sequences are
+    pending (env SKT_SERVE_MIN_FILL; checked at a worker's start and in
+    each drain round): a dispatch has a fixed cost (multihost: the
+    serialized broadcast and collectives), and eager workers would race
+    each other down to one-request batches.  The default is 64 under
+    multihost (the JAX package measured 16.6 qps ungated against 42.6
+    gated on its two-process CPU mesh) and 0 otherwise.  Requests never
+    strand: the last draining worker re-kicks."""
 
     def __init__(self, service: "AnnotationService"):
         self.service = service
         self.pending: list = []
         self.depth = max(1, int(os.environ.get("SKT_SERVE_DEPTH", "4")))
+        self.min_fill = max(0, int(os.environ.get(
+            "SKT_SERVE_MIN_FILL", "64" if service.multihost else "0")))
         self.inflight = 0
         self.batches_run = 0  # observability / tests
         self.seqs_run = 0     # total sequences across coalesced batches
@@ -115,9 +129,15 @@ class _QueryBatcher:
         self._kick(loop)
         return await fut
 
+    def _underfilled(self) -> bool:
+        return bool(self.min_fill) and sum(
+            len(b) for b, _, _ in self.pending) < self.min_fill
+
     def _kick(self, loop):
         if not self.pending or self.inflight >= self.depth:
             return
+        if self.inflight and self._underfilled():
+            return  # let the batch fill: a draining worker re-kicks
         self.inflight += 1
         t = loop.create_task(self._drain())
         self._drain_tasks.add(t)
@@ -127,6 +147,11 @@ class _QueryBatcher:
         loop = asyncio.get_event_loop()
         try:
             while self.pending:
+                if self.inflight > 1 and self._underfilled():
+                    # leave a small remainder for a fuller batch: another
+                    # worker is still running and drains it, or the last
+                    # worker's re-kick does
+                    break
                 work, self.pending = self.pending, []
                 t_round = time.perf_counter()
                 self.requests_run += len(work)
@@ -201,18 +226,29 @@ def write_kmer_distribution(table, function_index: list[str], path) -> None:
 
 class AnnotationService:
     def __init__(self, data_dir, config: Config = Config(), device="cuda",
-                 kmer_version: str | None = None, mesh=None):
+                 kmer_version: str | None = None, mesh=None,
+                 multihost: bool = False):
         """device: where the caller and matrix distance run ("cuda" runs
         the kernels and raises without CUDA; "cpu" their plain
         versions).  mesh: a parallel/mesh.Mesh to dispatch onto instead
         (queries split over dp, the table over tp, by a
         ParallelFunctionCaller); /add rebuilds the sharded tables under
-        the writer lock and swaps the snapshot."""
+        the writer lock and swaps the snapshot.  multihost: the mesh
+        spans processes; rank 0 serves HTTP and broadcasts every
+        collective dispatch, the other ranks run
+        service.multihost.follower_loop."""
         self.config = config
         self.data_dir = data_dir
         self.device = device
         self.mesh = mesh
+        self.multihost = multihost
         self.kmer_version = kmer_version
+        if multihost:
+            # re-arm the module's quit latch for a service built after an
+            # earlier serve/quit cycle in this process
+            from .multihost import reset_quit
+
+            reset_quit()
         table, self.function_index = pipeline.load_data_dir(
             data_dir, config)
         self.engines = self._make_engines(table)
@@ -226,12 +262,20 @@ class AnnotationService:
         self.mappings: dict[str, object] = {}
 
     def _make_engines(self, table) -> _Engines:
+        pcaller = None
         if self.mesh is not None:
+            from ..parallel import distributed
             from ..parallel.parallel_caller import ParallelFunctionCaller
 
-            caller = ParallelFunctionCaller(
+            caller = pcaller = ParallelFunctionCaller(
                 table, self.function_index, self.config.call,
                 self.config.device, mesh=self.mesh)
+            if self.multihost and distributed.is_main():
+                from .multihost import MultihostCaller
+
+                # rank 0 broadcasts each dispatch; the followers drive
+                # the inner caller from follower_loop
+                caller = MultihostCaller(pcaller)
         else:
             caller = FunctionCaller(table, self.function_index,
                                     self.config.call, self.config.device,
@@ -239,9 +283,9 @@ class AnnotationService:
         distance = MatrixDistance(table, self.function_index,
                                   self.config.distance, self.config.device,
                                   device=self.device)
-        if self.mesh is not None:
+        if pcaller is not None:
             # /matrix gathers its hits against the tp-split table
-            distance.mesh_caller = caller
+            distance.mesh_caller = pcaller
         return _Engines(table, caller, distance)
 
     # single-snapshot convenience views (one attribute read each — fine
@@ -257,7 +301,18 @@ class AnnotationService:
 
     def _call_batch(self, batch, keep_hits: bool = False):
         """One lock-free engines-snapshot read and one call
-        (copy-on-write /add)."""
+        (copy-on-write /add).  Multihost: the snapshot read and the
+        dispatch's broadcast are atomic against /add's broadcast and swap
+        (multihost._dispatch_lock); the lock is held through the dispatch
+        only, and collection (a local read) runs off it, so executor
+        threads overlap up to the batcher's depth."""
+        if self.multihost:
+            from .multihost import _dispatch_lock
+
+            with _dispatch_lock:
+                caller = self.engines.caller
+                handle = caller.dispatch_batch(batch, keep_hits=keep_hits)
+            return caller.collect_batch(handle)
         return self.engines.caller.call_batch(batch, keep_hits=keep_hits)
 
     def warm(self, length: int = 384, max_rows: int = 1024) -> int:
@@ -326,13 +381,25 @@ class AnnotationService:
                           f"{h.median}\t{h.var}\n")
         return out.getvalue()
 
-    def add_text(self, body: bytes) -> str:
+    def add_text(self, body: bytes, _broadcast: bool = True) -> str:
         """Add signature k-mers (final.kmers text lines) to the live table.
 
         Service-layer analog of the reference's POST /add
         (kser_request.cc:414-489).  The merged table is rebuilt on the
         host (table.build_table) — adds are rare admin operations; reads
-        stay on the static fast path."""
+        stay on the static fast path.  Multihost: rank 0 broadcasts the
+        body first, under the dispatch lock held across its own rebuild
+        and swap, so every rank rebuilds the same table (the followers
+        call this with _broadcast=False)."""
+        if self.multihost and _broadcast:
+            from .multihost import _dispatch_lock, broadcast_add
+
+            with _dispatch_lock:
+                broadcast_add(body)
+                return self._add_apply(body)
+        return self._add_apply(body)
+
+    def _add_apply(self, body: bytes) -> str:
         from ..table import build_table
 
         his, los, v0s, v1s, v2s = [], [], [], [], []
@@ -545,7 +612,17 @@ class AnnotationService:
     def matrix_text(self, body: bytes) -> str:
         batch = fasta_io.SequenceBatch.from_records(
             fasta_io.iter_fasta(body))
-        res = self.distance.compute([batch], mesh=self.mesh)
+        if self.multihost:
+            # every rank runs the same collective compute, under the
+            # dispatch lock for its whole length (its collectives must not
+            # interleave with call dispatches)
+            from .multihost import _dispatch_lock, broadcast_matrix
+
+            with _dispatch_lock:
+                broadcast_matrix(body)
+                res = self.engines.distance.compute([batch], mesh=self.mesh)
+        else:
+            res = self.distance.compute([batch], mesh=self.mesh)
         out = io.StringIO()
         for s1, s2, count, score in res.rows(with_score=True):
             out.write(f"{s1}\t{s2}\t{count}\t{formats.cxx_num(score)}\n")
@@ -642,18 +719,36 @@ async def _handle(service: AnnotationService, stop_event: asyncio.Event,
 async def serve_async(data_dir, host="127.0.0.1", port=6100,
                       config: Config = Config(), device="cuda",
                       warm_len: int = 0, listen_port_file=None,
-                      kmer_version=None, on_ready=None, mesh=None):
+                      kmer_version=None, on_ready=None, mesh=None,
+                      multihost: bool = False):
     """Serve until GET /quit.  on_ready(service, port), when given, is
     called once the server listens: a harness in the same process reaches
-    the live service (its batcher and engines) through it."""
+    the live service (its batcher and engines) through it.  multihost:
+    rank 0 of a process-spanning mesh (service/multihost.py); a lost
+    rank stops the server and raises once it has stopped."""
     service = AnnotationService(data_dir, config, device=device,
-                                kmer_version=kmer_version, mesh=mesh)
+                                kmer_version=kmer_version, mesh=mesh,
+                                multihost=multihost)
+    if multihost:
+        from ..parallel import distributed
+
+        # every rank's service is built before the first frame
+        distributed.barrier("service-built",
+                            timeout=distributed.WORK_TIMEOUT)
     if warm_len:
         t0 = time.perf_counter()
         n = service.warm(warm_len)
         print(f"warmed {n} dispatch shapes (len {warm_len}) in "
               f"{time.perf_counter() - t0:.1f}s", file=sys.stderr)
     stop_event = asyncio.Event()
+    beat = threading.Event()
+    if multihost:
+        from . import multihost as mh
+
+        loop = asyncio.get_running_loop()
+        mh.on_failure(lambda: loop.call_soon_threadsafe(stop_event.set))
+        threading.Thread(target=mh.heartbeat, args=(beat,), daemon=True,
+                         name="multihost-heartbeat").start()
     server = await asyncio.start_server(
         lambda r, w: _handle(service, stop_event, r, w), host, port)
     # port 0 means "choose a random port"; the bound port is announced
@@ -677,12 +772,22 @@ async def serve_async(data_dir, host="127.0.0.1", port=6100,
     while service.batcher._drain_tasks:
         await asyncio.gather(*list(service.batcher._drain_tasks),
                              return_exceptions=True)
+    if multihost:
+        beat.set()
+        # the followers stop with the front end; in an executor, as the
+        # broadcast takes the dispatch lock that a dispatch may hold
+        await asyncio.get_running_loop().run_in_executor(
+            None, mh.broadcast_quit)
+        if mh.failure() is not None:
+            raise RuntimeError(f"multihost service lost a rank: "
+                               f"{mh.failure()}")
 
 
 def serve(data_dir, host="127.0.0.1", port=6100, config: Config = Config(),
           device="cuda", warm_len: int = 0, listen_port_file=None,
-          kmer_version=None, mesh=None):
+          kmer_version=None, mesh=None, multihost: bool = False):
     asyncio.run(serve_async(data_dir, host, port, config, device=device,
                             warm_len=warm_len,
                             listen_port_file=listen_port_file,
-                            kmer_version=kmer_version, mesh=mesh))
+                            kmer_version=kmer_version, mesh=mesh,
+                            multihost=multihost))

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..parallel.mesh import dp_cells
+from ..parallel import distributed
 
 
 def value_count_pairs(values) -> tuple[np.ndarray, np.ndarray]:
@@ -100,12 +100,14 @@ def sharded_score_cutoff(mesh, local_scores, k: int = 2,
 
     Each dp row's first cell histograms its contiguous slice (padded
     with NaN to a multiple of the dp size); the histograms are summed on
-    the first row's cell, and the breaks run on the host over the
-    (bin-center, count) pairs: one small sum instead of gathering the raw
-    scores."""
+    this process's first cell, and on a mesh that spans processes over
+    every rank of it (all_reduce_sum; the JAX package's psum over dp:
+    each row is counted once, by its first cell's rank), so every rank
+    gets the same float.  The breaks run on the host over the
+    (bin-center, count) pairs: one small sum instead of gathering the
+    raw scores."""
     local_scores = np.asarray(local_scores, dtype=np.float32)
-    cells = dp_cells(mesh)
-    ndp = len(cells)
+    ndp = mesh.shape["dp"]
     pad = (-local_scores.shape[0]) % ndp
     if pad:
         local_scores = np.concatenate(
@@ -116,11 +118,14 @@ def sharded_score_cutoff(mesh, local_scores, k: int = 2,
         return gmin
     edges = np.linspace(gmin, gmax, n_bins + 1).astype(np.float32)
     n_local = local_scores.shape[0] // ndp
-    hist = None
-    for d, cell in enumerate(cells):
+    home = mesh.home
+    hist = torch.zeros(n_bins, dtype=torch.int64, device=home)
+    for d, row in enumerate(mesh.devices):
+        if not mesh.is_local(d, 0):
+            continue
         x = torch.from_numpy(local_scores[d * n_local:(d + 1) * n_local])
-        h = _dp_histogram(x.to(cell), gmin, gmax, n_bins).to(cells[0])
-        hist = h if hist is None else hist + h
+        hist += _dp_histogram(x.to(row[0]), gmin, gmax, n_bins).to(home)
+    distributed.all_reduce_sum(hist, mesh.all_group())
     hist = hist.cpu().numpy()
     centers = (edges[:-1] + edges[1:]) / 2
     nz = hist > 0

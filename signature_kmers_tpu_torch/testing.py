@@ -14,6 +14,10 @@ build's corpus at the reference's scale on disk: build_corpus.  The
 linear probe takes a thread per query: linear_cases (chains that wrap past
 the last slot, walks cut at max_probes).  Also the exact host route of the
 distance mask (distance_found_host), for checks.
+
+Run as a module it is the rank entry point of multi-process runs
+(rank_main: the CLI, or the mesh programs on a process-spanning mesh), used by
+tests/test_torch_multiprocess.py and chip_smoke.py's phase 3j.
 Nothing on the main path imports this module.
 """
 
@@ -643,3 +647,297 @@ def build_corpus(root, n_seqs: int, n_genomes: int = 100,
         (fasta_dir / gid).write_text("".join(fa))
         (defs_dir / gid).write_text("".join(defs))
     return fasta_dir, defs_dir
+
+
+# ---- the rank entry point of multi-process runs ---------------------------
+
+KERNEL_WRAPPERS = (
+    ("kmer_pack", "pack_call_windows_rows16"), ("probe", "probe_wide"),
+    ("automaton", "device_automaton_packed"), ("probe", "probe_wide_aux"),
+    ("probe", "probe_wide_distance"),
+    ("build_extract", "build_extract_windows"),
+    ("build_select", "build_select_runs"), ("probe", "probe_bucket"),
+    ("probe", "probe_bucket_aux"), ("probe", "probe_cmph"),
+    ("probe", "probe_cmph_aux"), ("probe", "probe_table"))
+PLAIN_VERSIONS = (
+    ("kmer_pack", ("expand_rows16", "pack_call_windows_rows16_reference")),
+    ("probe", ("probe_wide_reference", "probe_wide_aux_reference",
+               "probe_wide_distance_reference", "probe_bucket_reference",
+               "probe_bucket_aux_reference", "probe_cmph_reference",
+               "probe_cmph_aux_reference", "probe_table_reference")),
+    ("automaton", ("device_automaton_reference", "pack_records_reference")),
+    ("build_extract", ("build_extract_windows_reference",)),
+    ("build_select", ("build_select_runs_reference",)))
+
+
+def _ops(name):
+    import importlib
+
+    return importlib.import_module(f"signature_kmers_tpu_torch.ops.{name}")
+
+
+def kernel_launches() -> dict:
+    """Each kernel wrapper's launch count in this process."""
+    return {name: getattr(_ops(mod), name).launches
+            for mod, name in KERNEL_WRAPPERS}
+
+
+def count_plain_versions() -> dict:
+    """Counts every later call of a plain version in this process (the
+    counts dict is returned and filled in place)."""
+    counts = {}
+    for mod_name, names in PLAIN_VERSIONS:
+        mod = _ops(mod_name)
+        for name in names:
+            fn = getattr(mod, name)
+            counts[name] = 0
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                counts[_name] += 1
+                return _fn(*a, **kw)
+
+            setattr(mod, name, counted)
+    return counts
+
+
+def mp_workload():
+    """The JAX package's multi-process workload (tests/drivers/
+    mp_driver.py): a 30,000-k-mer wide table of 50 functions, 96 mutated
+    200-residue queries and a 64-sequence build chunk, from seed 42.
+    -> (table, function_index, batch, chunk)."""
+    from .core import alphabet
+    from .io.fasta import SequenceBatch
+    from .table.kmer_table import pack_values
+    from .table.wide_table import WideKmerTable
+
+    rng = np.random.default_rng(42)
+    aa = alphabet.encode_seq(alphabet.AA20)
+    n_k = 30_000
+    corpus = aa[rng.integers(0, 20, n_k + 7)].astype(np.uint8)
+    hi, lo = alphabet.pack_codes_np(corpus)
+    fn_of = ((np.arange(hi.shape[0]) // 200) % 50).astype(np.uint32)
+    pk = (hi.astype(np.uint64) << 24) | lo
+    _, idx = np.unique(pk, return_index=True)
+    idx.sort()
+    hi, lo, fn = hi[idx], lo[idx], fn_of[idx]
+    n = hi.shape[0]
+    v0, v1, v2 = pack_values(
+        rng.integers(0, 200, n), fn, np.full(n, 200, np.uint32),
+        np.full(n, 200, np.uint32), np.full(n, 400, np.uint32))
+    table = WideKmerTable.build(hi, lo, v0.astype(np.uint32),
+                                v1.astype(np.uint32), v2.astype(np.uint32))
+    function_index = [f"fn{i}" for i in range(50)] + ["hypothetical protein"]
+    n_q, L = 96, 200
+    starts = rng.integers(0, n_k - L, n_q)
+    codes = np.stack([corpus[s:s + L] for s in starts]).copy()
+    for q in range(n_q):
+        pos = rng.integers(0, L, 6)
+        codes[q, pos] = aa[rng.integers(0, 20, 6)]
+    batch = SequenceBatch(
+        codes.reshape(-1), (np.arange(n_q + 1) * L).astype(np.int32),
+        [f"q{i}" for i in range(n_q)], [""] * n_q)
+    B = 64
+    plens = rng.integers(8, 120, B).astype(np.int32)
+    bcodes = aa[rng.integers(0, 6, int(plens.sum()))].astype(np.uint8)
+    chunk = (bcodes, np.arange(B, dtype=np.int32),
+             ((np.arange(B) // 4) % 7).astype(np.int32), plens)
+    return table, function_index, batch, chunk
+
+
+def kept_digest(kept, stats) -> dict:
+    """A kept set and its statistics, comparable across packages: each
+    field's sha256 over int64 values, and the statistics."""
+    import dataclasses
+    import hashlib
+
+    out = {f.name: hashlib.sha256(np.asarray(getattr(kept, f.name),
+                                             np.int64).tobytes()).hexdigest()
+           for f in dataclasses.fields(kept)}
+    out["n"] = int(len(kept))
+    out["distinct_signatures"] = int(stats.distinct_signatures)
+    out["seqs_with_a_signature"] = hashlib.sha256(np.sort(np.asarray(
+        list(stats.seqs_with_a_signature), np.int64)).tobytes()).hexdigest()
+    out["distinct_functions"] = hashlib.sha256(np.asarray(sorted(
+        stats.distinct_functions.items()), np.int64).tobytes()).hexdigest()
+    return out
+
+
+def _rows(results) -> str:
+    from .io import formats
+
+    return "".join(formats.format_call_row(
+        r.seq_id, r.best.function, r.best.function_index, r.best.score)
+        for r in results)
+
+
+def mesh_job(spec: dict) -> dict:
+    """The mesh programs on a mesh over every rank's cells (spec["cells"]
+    cells of spec["device"] a rank, tp spec["tp"]): the call of
+    spec["queries"] against spec["data_dir"] (or of the mp workload), the
+    selection of spec["corpus_npz"]'s concatenated corpus (or of the mp
+    chunk; at tp spec["build_tp"] when given), sharded_score_cutoff of
+    spec["cutoff"] seeded scores and
+    MatrixDistance.compute(mesh=) of spec["distance"].  -> results."""
+    import time
+
+    import torch
+
+    from .core.config import Config, DeviceConfig
+    from .io.fasta import read_fasta_batch
+    from .models import pipeline
+    from .models.matrix_distance import MatrixDistance
+    from .models.signature_builder import SignatureBuilder
+    from .parallel import build_step, distributed
+    from .parallel.mesh import make_mesh
+    from .parallel.parallel_caller import ParallelFunctionCaller
+    from .stats.natural_breaks import sharded_score_cutoff
+
+    device = torch.device(spec.get("device", "cpu"))
+    assert distributed.initialize(device=device.type)
+    mesh = make_mesh(tp=spec.get("tp"),
+                     devices=[device] * spec.get("cells", 1))
+    out = {"spans": distributed.is_multiprocess_mesh(mesh),
+           "shape": mesh.shape, "ranks": [list(r) for r in mesh.ranks]}
+    out["shard_inputs"] = distributed.shard_inputs(list(range(10)))
+    cfg = Config()
+    dc = DeviceConfig(call_batch=spec.get("call_batch",
+                                          cfg.device.call_batch))
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    chunk = None
+    if spec.get("workload") == "mp":
+        table, fi, batch, chunk = mp_workload()
+    elif spec.get("data_dir"):
+        table, fi = pipeline.load_data_dir(spec["data_dir"])
+        batch = read_fasta_batch(spec["queries"])
+    else:
+        table = None
+    if table is not None:
+        t0 = time.perf_counter()
+        pc = ParallelFunctionCaller(table, fi, cfg.call, dc, mesh=mesh)
+        out["shard_s"] = time.perf_counter() - t0
+        secs = []
+        for _ in range(spec.get("repeats", 1)):
+            distributed.barrier("mesh-call")
+            t0 = time.perf_counter()
+            res = pc.call_batch(batch)
+            sync()
+            secs.append(time.perf_counter() - t0)
+        out["rows"] = _rows(res)
+        out["call_s"] = secs
+        out["seqs"] = len(batch)
+        del pc, table
+    if spec.get("corpus_npz"):
+        with np.load(spec["corpus_npz"]) as z:
+            chunk = tuple(z[k] for k in ("codes", "sids", "fidxs", "plens"))
+    if chunk is not None:
+        if "build_tp" in spec:
+            mesh = make_mesh(tp=spec["build_tp"],
+                             devices=[device] * spec.get("cells", 1))
+            out["build_shape"] = mesh.shape
+        sb = SignatureBuilder(device=device)
+        sb._seq_chunks.append(chunk)
+        distributed.barrier("mesh-build")
+        sync()
+        t0 = time.perf_counter()
+        kept = sb.process_kmers(mesh=mesh)
+        sync()
+        out["process_kmers_s"] = time.perf_counter() - t0
+        out["kept"] = kept_digest(kept, sb.stats)
+        out["exchange"] = dict(build_step.exchange_stats)
+        g = mesh.all_group()
+        if g is not None and spec.get("loopback"):
+            # the host's loopback rate: an all_to_all of as many bytes as
+            # this rank sent in the exchange, between the ranks as CPU
+            # tensors over gloo, split evenly; the faster of two (the
+            # first touches fresh pages)
+            n = max(out["exchange"].get("rank_bytes", 0) // 4, 1 << 20)
+            x = torch.zeros(n, dtype=torch.int32)
+            split = [n // g.size] * (g.size - 1)
+            split.append(n - sum(split))
+            secs = []
+            for _ in range(2):
+                distributed.barrier("loopback")
+                t0 = time.perf_counter()
+                distributed.all_to_all_uneven(x, split, g, control=True)
+                secs.append(time.perf_counter() - t0)
+            out["loopback_bytes"] = 4 * n
+            out["loopback_s"] = min(secs)
+    if spec.get("cutoff"):
+        c = spec["cutoff"]
+        rng = np.random.default_rng(c["seed"])
+        scores = np.concatenate([rng.normal(0.2, 0.05, c["n"] // 2),
+                                 rng.normal(0.7, 0.1, c["n"] - c["n"] // 2)])
+        out["cutoff"] = sharded_score_cutoff(mesh, scores.astype(np.float32),
+                                             k=c.get("k", 2))
+    if spec.get("distance"):
+        table, fi = pipeline.load_data_dir(spec["data_dir_distance"])
+        md = MatrixDistance(table, fi, cfg.distance, cfg.device,
+                            device=device)
+        res = md.compute([read_fasta_batch(spec["distance"])], mesh=mesh)
+        out["distance"] = [list(r) for r in res.rows(with_score=True)]
+    return out
+
+
+def rank_main(argv=None) -> int:
+    """python -m signature_kmers_tpu_torch.testing [--strict] cli ARGS...
+       python -m signature_kmers_tpu_torch.testing [--strict] mesh SPEC.json
+
+    One rank of a multi-process run (SKT_COORDINATOR, SKT_NUM_PROCESSES,
+    SKT_PROCESS_ID in the environment): the port's CLI with ARGS, or
+    mesh_job(SPEC) with its results written to SPEC's "out" + ".<rank>".
+    Prints "MP_RANK <json>" last: the rank, its exit code, its kernel
+    launches, the plain versions that ran, its peak device memory and
+    seconds.  --strict exits non-zero when a plain version ran."""
+    import json
+    import sys
+    import time
+
+    import torch
+
+    args = list(sys.argv[1:] if argv is None else argv)
+    strict = args[:1] == ["--strict"]
+    if strict:
+        args = args[1:]
+    plain = count_plain_versions()
+    t0 = time.perf_counter()
+    from .parallel import distributed
+
+    rank = int(__import__("os").environ.get("SKT_PROCESS_ID", "0"))
+    rc = 0
+    try:
+        if args[0] == "cli":
+            from .cli.main import main as cli_main
+
+            try:
+                rc = cli_main(args[1:]) or 0
+            except SystemExit as e:
+                rc = e.code if isinstance(e.code, int) else 1
+                if not isinstance(e.code, int):
+                    print(e.code, file=sys.stderr)
+        else:
+            spec = json.loads(open(args[1]).read())
+            res = mesh_job(spec)
+            with open(f"{spec['out']}.{distributed.process_index()}",
+                      "w") as fh:
+                json.dump(res, fh)
+            distributed.shutdown()
+    finally:
+        report = {"rank": rank, "rc": rc, "launches": kernel_launches(),
+                  "plain": {k: v for k, v in plain.items() if v},
+                  "seconds": time.perf_counter() - t0,
+                  "peak_mib": (torch.cuda.max_memory_allocated() / 2**20
+                               if torch.cuda.is_available() else 0.0)}
+        print("MP_RANK " + json.dumps(report), flush=True)
+    if strict and report["plain"]:
+        return 3
+    return rc
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(rank_main())

@@ -535,3 +535,61 @@ def test_probe_table(dev, case):
             *tabs, *q, t.max_probes)[0].sum().item()
     with pytest.raises(ValueError):
         probe.probe_table(*(x[:1000] for x in tabs), *q, max_probes)
+
+
+def test_nccl_world_of_one(dev):
+    """The collective wrappers on CUDA tensors over NCCL, at the world of
+    one that one card allows, each held to its definition."""
+    import socket
+
+    from signature_kmers_tpu_torch.parallel import distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert distributed.initialize(f"127.0.0.1:{port}", 1, 0,
+                                  backend="nccl", device="cuda")
+    try:
+        g = distributed.world()
+        x = torch.arange(9, dtype=torch.int64, device=dev)
+        assert torch.equal(distributed.all_reduce_sum(x.clone(), g), x)
+        for n in (0, 3):
+            y = torch.ones((n, 2), dtype=torch.int32, device=dev)
+            assert [torch.equal(a, y) for a in
+                    distributed.all_gather_uneven(y, g)] == [True]
+        for n in (0, 7):
+            z = torch.arange(n, dtype=torch.int32, device=dev)
+            got, recv = distributed.all_to_all_uneven(z, [n], g)
+            assert torch.equal(got, z) and recv == [n]
+        b = torch.arange(5, dtype=torch.uint8, device=dev)
+        assert torch.equal(distributed.broadcast(b.clone(), 0, g), b)
+        assert distributed.fetch_global(x, g).tolist() == list(range(9))
+    finally:
+        distributed.shutdown()
+
+
+def test_nccl_refuses_two_ranks_on_one_card(dev, tmp_path):
+    """Two ranks on one card under nccl: both refuse at initialize with a
+    clear error instead of letting NCCL hang."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    if torch.cuda.device_count() != 1:
+        pytest.skip("two ranks share a card only where there is one")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    code = ("from signature_kmers_tpu_torch.parallel import distributed\n"
+            "distributed.initialize(device='cuda')\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code], env=dict(
+            os.environ, PYTHONPATH=root, SKT_COORDINATOR=f"127.0.0.1:{port}",
+            SKT_NUM_PROCESSES="2", SKT_PROCESS_ID=str(r),
+            SKT_DIST_BACKEND="nccl"), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    outs = [p.communicate(timeout=120)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode != 0 and "share the card" in out, out[-2000:]

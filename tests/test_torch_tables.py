@@ -641,6 +641,73 @@ def test_sharded_bucket_matches_jax(wide_tables, tp):
     np.testing.assert_array_equal(hits, 1)
 
 
+# one rank of test_sharded_tables_placed_by_rank: its own shard of each
+# layout, the sizing agreed with the other rank over gloo
+_PLACE_RANK = """
+import sys
+import numpy as np
+from signature_kmers_tpu_torch.parallel import distributed
+from signature_kmers_tpu_torch.parallel import parallel_caller as pc
+from signature_kmers_tpu_torch.table import BucketKmerTable
+from signature_kmers_tpu_torch.table.wide_table import WideKmerTable
+
+assert distributed.initialize(device="cpu")
+r, src = distributed.process_index(), sys.argv[1]
+out = {}
+for name, cls, t in (
+        ("wide", pc.ShardedWideTable, WideKmerTable.load(src + "/wide")),
+        ("bucket", pc.ShardedBucketTable,
+         BucketKmerTable.load(src + "/bucket"))):
+    st = cls.from_table(t, 2, {r}, distributed.world())
+    out.update({f"{name}.{k}": np.asarray(v) for k, v in vars(st).items()})
+np.savez(f"{src}/rank{r}.npz", **out)
+distributed.shutdown()
+"""
+
+
+def test_sharded_tables_placed_by_rank(wide_tables, tmp_path):
+    """Two gloo ranks each place only their own shard (a rank's cells'
+    shards, ParallelFunctionCaller on a mesh that spans processes): each
+    shard's arrays, and the shared geometry, equal the one-process
+    from_table's, which equals JAX's (the tests above)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    pt = wide_tables["120k"][1]
+    bt = BucketKmerTable.build(*pt.occupied())
+    pt.save(tmp_path / "wide", compact=False)
+    bt.save(tmp_path / "bucket")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    root = Path(__file__).resolve().parents[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _PLACE_RANK, str(tmp_path)],
+        env=dict(os.environ, PYTHONPATH=str(root), OMP_NUM_THREADS="1",
+                 SKT_COORDINATOR=f"127.0.0.1:{port}", SKT_NUM_PROCESSES="2",
+                 SKT_PROCESS_ID=str(r), SKT_DIST_BACKEND="gloo"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in (0, 1)]
+    for p in procs:
+        out = p.communicate(timeout=120)[0].decode(errors="replace")
+        assert p.returncode == 0, out
+    for name, full in (("wide", port_pc.ShardedWideTable.from_table(pt, 2)),
+                       ("bucket",
+                        port_pc.ShardedBucketTable.from_table(bt, 2))):
+        assert full.placed == (0, 1)
+        for r in (0, 1):
+            with np.load(tmp_path / f"rank{r}.npz") as z:
+                got = {k.split(".", 1)[1]: z[k] for k in z.files
+                       if k.startswith(name + ".")}
+            assert got.pop("placed").tolist() == [r]
+            for k, v in got.items():
+                want = getattr(full, k)
+                if isinstance(want, np.ndarray):
+                    want = want[r:r + 1]
+                np.testing.assert_array_equal(v, want, err_msg=f"{name} {k}")
+
+
 @pytest.mark.parametrize("tp", [1, 2, 16])
 def test_sharded_linear_matches_jax(wide_tables, tp):
     jt, pt = wide_tables["30k"]
@@ -742,12 +809,27 @@ def test_default_mesh_without_cuda_raises():
 
 
 def test_single_process_surface(monkeypatch):
+    """Without a coordinator: one process, every collective the identity,
+    every mesh this process's."""
     monkeypatch.delenv("SKT_COORDINATOR", raising=False)
     assert distributed.initialize() is False
     assert distributed.is_main()
     assert distributed.shard_inputs(iter("abc")) == ["a", "b", "c"]
-    with pytest.raises(RuntimeError, match="not ported yet"):
-        distributed.initialize("host0:9731")
+    assert distributed.process_info() == {
+        "process_index": 0, "process_count": 1, "local_devices": 1,
+        "global_devices": 1}
+    t = torch.arange(5)
+    assert distributed.all_reduce_sum(t) is t and t.tolist() == [0, 1, 2,
+                                                                 3, 4]
+    assert [x.tolist() for x in distributed.all_gather_uneven(t)] == \
+        [[0, 1, 2, 3, 4]]
+    got, n = distributed.all_to_all_uneven(t, [5])
+    assert got.tolist() == [0, 1, 2, 3, 4] and n == [5]
+    assert distributed.fetch_global(t).tolist() == [0, 1, 2, 3, 4]
+    distributed.barrier("alone")
+    grid = mesh_mod.make_mesh(tp=2, devices=[CPU] * 4, local=True)
+    assert not distributed.is_multiprocess_mesh(grid)
+    assert grid.ranks == ((0, 0), (0, 0)) and grid.home == CPU
 
 
 def _run(argv):
@@ -776,14 +858,38 @@ def kd(fixture_dir, tmp_path_factory):
                 cuckoo=BucketKmerTable.build(*table.occupied()))
 
 
+# the JAX package's refusals (signature_kmers_tpu/cli/main.py), word for word
+JAX_REFUSALS = {
+    "call-functions": "call-functions: -o/--output-file is required when "
+                      "running multi-host (jax.process_count() > 1); "
+                      "per-process stdout slices cannot be merged",
+    "serve": "serve: multi-host (SKT_COORDINATOR set) requires --mesh"}
+
+
 @pytest.mark.parametrize("verb", ["call-functions", "serve"])
 def test_coordinator_is_refused(kd, monkeypatch, verb):
-    monkeypatch.setenv("SKT_COORDINATOR", "localhost:9731")
+    """Under a coordinator (a world of one, on gloo) call-functions without
+    -o and serve without --mesh refuse with the JAX package's texts."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    monkeypatch.setenv("SKT_COORDINATOR", f"127.0.0.1:{port}")
+    monkeypatch.setenv("SKT_NUM_PROCESSES", "1")
+    monkeypatch.setenv("SKT_PROCESS_ID", "0")
     argv = (["call-functions", "-d", str(kd["dir"]), "-i",
              str(kd["queries"])] if verb == "call-functions" else
             ["serve", "-d", str(kd["dir"]), "--no-listen"])
-    with pytest.raises(RuntimeError, match="not ported yet"):
-        _run(argv + ["--device", "cpu", "--mesh"])
+    try:
+        with pytest.raises(SystemExit) as e:
+            _run(argv + ["--device", "cpu"])
+        assert str(e.value) == JAX_REFUSALS[verb]
+        assert distributed.process_count() == 1 and distributed.backend() \
+            == "gloo"
+    finally:
+        distributed.shutdown()
+    assert distributed.process_count() == 1
 
 
 def test_build_mesh_is_refused(tmp_path, monkeypatch):
