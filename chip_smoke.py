@@ -93,11 +93,17 @@ Phases, in order; any failure exits non-zero:
    found mask and value words, and each cell's probe_table launch must
    equal its plain version.  Launch counts are reset before each run and
    the phase fails if a kernel of the run did not launch or a plain
-   version ran.  Prints each step's seconds, the mesh's seqs/s beside
-   phase 3's, probe_table's time as issued and held against its bound
-   (each distinct sector of key_hi, key_lo and v0-v2 that this run's
-   walks read, counted once, plus the streams), the plain
-   version's time and gather_ms, peak device memory and the wall time.
+   version ran.  Then kernel L2 beyond the L2 cache: one KmerTable of
+   10M of the keys (2^24 slots, load 0.596) probed by one call chunk of
+   8192 x 304 windows (half keys, half 24-bit aliens); the kernel must
+   equal the plain version at both shapes.  Prints each step's seconds,
+   the mesh's seqs/s beside phase 3's, and for L2 at both shapes (a
+   cell's block, and the chunk): the time as issued and held against the
+   bound on the device rows (each distinct 32-byte
+   key sector that this run's walks read and each hit's value sector,
+   counted once, plus the streams), the bound counted on the five word
+   arrays beside it, the plain version's time and gather_ms (each
+   query's first key row), then peak device memory and the wall time.
 3f. the annotation service (run after 3h): phase 3's table saved to a
    data dir with a function.index; the port's serve_async in a thread on
    port 0 (--warm 300, device="cuda"), started twice, at SKT_SERVE_DEPTH
@@ -277,6 +283,7 @@ DIST_SAMPLE = 64            # sequences held against the host count
 BUILD_SEQS = 300_000        # the reference's published build size
 BUILD_LOWER = 300           # of them written in lower case
 SELECT_WINDOWS = 20_000_000  # bench.py's build-selection workload
+CHUNK_WINDOWS = 8192 * 304  # one call chunk: call_batch rows x windows
 LAYOUT_DIST_S = 2048        # matrix distance on phase 3e's cuckoo table
 
 
@@ -1904,25 +1911,100 @@ def linear_walks(key_hi, key_lo, qhi, qlo, max_probes: int):
     return cur0, cat(hi_slots), cat(lo_slots), cat(hit_slots)
 
 
-def probe_table_bound_bytes(n_queries: int, hi_slots, lo_slots,
-                            hit_slots) -> int:
-    """Bytes a probe of these walks must move, each input byte counted
-    once: every distinct 32-byte sector of key_hi, of key_lo and of each
-    of v0-v2 that the walks read, plus the 8 bytes in and 13 out of each
-    query."""
+def distinct(ix) -> int:
+    """The number of distinct values in the non-negative integer array
+    ix (a mark per value: linear in its size, where np.unique sorts)."""
     import numpy as np
 
-    def sectors(slots):  # 8 four-byte slots to a sector
-        return int(np.unique(slots // 8).size)
+    if not ix.size:
+        return 0
+    seen = np.zeros(int(ix.max()) + 1, bool)
+    seen[ix] = True
+    return int(np.count_nonzero(seen))
 
-    return 32 * (sectors(hi_slots) + sectors(lo_slots)
-                 + 3 * sectors(hit_slots)) + 21 * n_queries
+
+def probe_table_sectors(walked, hit_slots) -> tuple:
+    """The distinct 32-byte sectors of the device rows
+    (ops/probe.linear_rows) that these walks read -> (key sectors, four
+    8-byte key rows to a sector; value sectors, two 16-byte value rows to
+    a sector, those of the hits)."""
+    return distinct(walked // 4), distinct(hit_slots // 2)
+
+
+def five_word_bound_bytes(n_queries: int, hi_slots, lo_slots,
+                          hit_slots) -> int:
+    """The same walks counted on the five word arrays that the first
+    design read (key_hi, key_lo, v0, v1, v2; 8 slots to a sector): every
+    distinct sector of key_hi, of key_lo and of each of v0-v2 read, plus
+    the 8 bytes in and 13 out of each query."""
+    return 32 * (distinct(hi_slots // 8) + distinct(lo_slots // 8)
+                 + 3 * distinct(hit_slots // 8)) + 21 * n_queries
+
+
+def time_linear_probe(card, keys, vals, qhi, qlo, key_hi, key_lo, qh, ql,
+                      max_probes: int, shape: str, plain_iters: int):
+    """Kernel L2 on one shard's device rows (keys, vals) and one query
+    block (qhi, qlo on the card; key_hi, key_lo, qh, ql the same words on
+    the host) -> its report: the kernel against the plain version
+    (mismatching words) and timed as issued and held, the plain version's
+    time, the bound on the rows and on the five words, and the fastest
+    torch gather of each query's first key row."""
+    import numpy as np
+    import torch
+
+    from signature_kmers_tpu_torch.ops import probe
+
+    def kernel():
+        return probe.probe_table(keys, vals, qhi, qlo, max_probes)
+
+    def plain():
+        return probe.probe_table_reference(keys, vals, qhi, qlo, max_probes)
+
+    diff = [(x.to(torch.int64) - y.to(torch.int64)).abs()
+            for x, y in zip(kernel(), plain())]
+    mismatches = sum(int((x != 0).sum()) for x in diff)
+    err = max([0] + [int(x.max()) for x in diff if x.numel()])
+    ms, held_ms = time_ms(kernel, 20), time_ms(kernel, 20, hold=True)
+    cur0, hi_slots, lo_slots, hit_slots = linear_walks(
+        key_hi, key_lo, qh, ql, max_probes)
+    # the bound on the rows: each distinct sector read once, plus the 8
+    # bytes in and 13 out of each query
+    key_sectors, value_sectors = probe_table_sectors(hi_slots, hit_slots)
+    sectors = key_sectors + value_sectors
+    nbytes = 32 * sectors + 21 * qh.size
+    old_bytes = five_word_bound_bytes(qh.size, hi_slots, lo_slots,
+                                      hit_slots)
+    r = dict(shape=shape, mismatches=mismatches, max_abs_err=float(err),
+             ms=ms, held_ms=held_ms, slots_walked=int(hi_slots.size),
+             hits=int(hit_slots.size), key_sectors=key_sectors,
+             sectors_per_query=sectors / qh.size,
+             g_sectors_per_s=sectors / held_ms / 1e6,
+             bound_bytes=nbytes, bound_bytes_old_count=old_bytes)
+    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, 0)
+    r["bound_ms_old_count"] = bound_ms(old_bytes, 0)[0]
+    r["bound_share"] = r["bound_ms"] / held_ms
+    r["plain_ms"] = time_ms(plain, plain_iters)
+    cur0_t = torch.from_numpy(cur0.astype(np.int64)).to(qhi.device)
+    r["gather_ms"], call, _ = row_gather_ms(keys, cur0_t)
+    r["gather_calls"] = [call]
+    print(f"probe_table on {shape}: {ms:.4f} ms as issued, "
+          f"{held_ms:.4f} ms held ({r['bound_share']:.3f} of the "
+          f"bound, {r['g_sectors_per_s']:.1f} G sectors/s; "
+          f"{mismatches} words differ from the plain version); "
+          f"plain {r['plain_ms']:.4f} ms; "
+          f"bound {r['bound_ms']:.4f} ms ({nbytes} bytes: "
+          f"{hi_slots.size} slots walked, {key_sectors} key sectors, "
+          f"{hit_slots.size} hits, {r['sectors_per_query']:.4f} sectors a "
+          f"query), five-word count {r['bound_ms_old_count']:.4f} ms "
+          f"({old_bytes} bytes); gather yardstick {r['gather_ms']:.4f} ms "
+          f"({call}) [{card}]")
+    return r
 
 
 def mesh_phase(card, mesh, table, entries, function_index, cfg, sets,
                outputs, p3_rates, caller, kh, md, md_sequences, wrappers,
                rng, n_cuckoo=2_000_000, n_linear=4_000_000,
-               n_windows=2_500_000):
+               n_windows=2_500_000, n_chunk_keys=10_000_000):
     """Phase 3h: the (dp, tp) mesh in one process.  -> this phase's
     numbers: the mesh path's launches, the linear probe's report."""
     import numpy as np
@@ -1941,6 +2023,7 @@ def mesh_phase(card, mesh, table, entries, function_index, cfg, sets,
     from signature_kmers_tpu_torch.parallel.sharded_table import (
         ShardedKmerTable, probe_sharded, split_rows)
     from signature_kmers_tpu_torch.table import BucketKmerTable
+    from signature_kmers_tpu_torch.table.kmer_table import KmerTable
 
     on_card = mesh.devices[0][0].type == "cuda"
     dev0 = mesh.devices[0][0]
@@ -2163,37 +2246,60 @@ def mesh_phase(card, mesh, table, entries, function_index, cfg, sets,
     if mism:
         fail(f"phase 3h: probe_table differs from its plain version ({mism})")
     a, b = split_rows(n_windows, mesh.shape["dp"])[0]
-    tabs = cells[0][0]
-    q = (qhi[a:b], qlo[a:b])
     r = dict(mismatches=mism, max_abs_err=float(err),
              path_shape=f"{b - a} windows against one of "
                         f"{lt.n_shards} shards of {lt.key_hi.shape[1]} slots")
     if on_card:
-        cur0, hi_slots, lo_slots, hit_slots = linear_walks(
-            lt.key_hi[0], lt.key_lo[0], qh[a:b], ql[a:b], lt.max_probes)
-        nbytes = probe_table_bound_bytes(b - a, hi_slots, lo_slots,
-                                         hit_slots)
-        r["bound_ms"], r["bound_by"] = bound_ms(nbytes, 0)
-        r["ms"] = time_ms(lambda: probe.probe_table(*tabs, *q,
-                                                    lt.max_probes), 20)
-        r["held_ms"] = time_ms(lambda: probe.probe_table(
-            *tabs, *q, lt.max_probes), 20, hold=True)
-        r["plain_ms"] = time_ms(lambda: probe.probe_table_reference(
-            *tabs, *q, lt.max_probes), 2)
-        cur0_t = torch.from_numpy(cur0.astype(np.int64)).to(dev0)
-        r["gather_ms"], call, _ = row_gather_ms(tabs[0].view(-1, 1), cur0_t)
-        r["gather_calls"] = [call]
-        print(f"probe_table on {r['path_shape']}: {r['ms']:.4f} ms as "
-              f"issued, {r['held_ms']:.4f} ms held, plain "
-              f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ms "
-              f"({nbytes} bytes: {hi_slots.size} slots walked, "
-              f"{hit_slots.size} hits, each sector counted once), gather "
-              f"yardstick "
-              f"{r['gather_ms']:.4f} ms ({call}) [{card}]")
-        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    out["probe_table"] = r
+        with step("L2 timing at the path's shape"):
+            p = time_linear_probe(card, *cells[0][0], qhi[a:b], qlo[a:b],
+                                  lt.key_hi[0], lt.key_lo[0], qh[a:b],
+                                  ql[a:b], lt.max_probes, r["path_shape"], 2)
+        r.update({k: p[k] for k in ("ms", "held_ms", "plain_ms",
+                                    "bound_ms", "bound_by",
+                                    "bound_ms_old_count", "gather_ms",
+                                    "gather_calls")}, path=p)
     del cells, lt
     gc.collect()
+
+    # ---- L2 beyond the L2 cache: one 2^24-slot shard, one call chunk ------
+    if on_card:
+        pick = np.sort(rng.choice(hi.shape[0], min(n_chunk_keys,
+                                                   hi.shape[0]),
+                                  replace=False))
+        with step(f"KmerTable.build of {pick.size} keys"):
+            big = KmerTable.build(*(x[pick] for x in (hi, lo, v0, v1, v2)))
+        n_q = CHUNK_WINDOWS
+        members = rng.choice(pick.size, n_q // 2)
+        qh = np.concatenate([hi[pick][members], rng.integers(
+            0, 1 << 24, n_q - n_q // 2).astype(np.uint32)])
+        ql = np.concatenate([lo[pick][members], rng.integers(
+            0, 1 << 24, n_q - n_q // 2).astype(np.uint32)])
+        perm = rng.permutation(n_q)
+        qh, ql = qh[perm], ql[perm]
+        words = [torch.from_numpy(x.view(np.int32)) for x in
+                 (big.key_hi, big.key_lo, big.v0, big.v1, big.v2)]
+        rows = tuple(x.to(dev0) for x in probe.linear_rows(*words))
+        shape = (f"{n_q} windows (8192 x 304) against a {big.size}-slot "
+                 f"shard of {big.n_items} keys (load "
+                 f"{big.n_items / big.size:.3f}, max_probes "
+                 f"{big.max_probes})")
+        with step("L2 timing on the 2^24-slot shard"):
+            r["chunk"] = time_linear_probe(
+                card, *rows, torch.from_numpy(qh.view(np.int32)).to(dev0),
+                torch.from_numpy(ql.view(np.int32)).to(dev0), big.key_hi,
+                big.key_lo, qh, ql, big.max_probes, shape, 2)
+        del rows, words, big
+        gc.collect()
+        bad = {at: r[at]["mismatches"] for at in ("path", "chunk")
+               if r[at]["mismatches"]}
+        r["mismatches"] += sum(bad.values())
+        r["max_abs_err"] = max(r["max_abs_err"], r["path"]["max_abs_err"],
+                               r["chunk"]["max_abs_err"])
+        if bad:
+            fail(f"phase 3h: probe_table differs from its plain version "
+                 f"({bad} words)")
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["probe_table"] = r
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"mesh phase: {out['wall_s']:.1f} s wall, peak device memory "
           f"{out.get('peak_gib', 0):.3f} GiB [{card}]")
@@ -4644,7 +4750,8 @@ def main() -> int:
                                    "sectors_per_valid",
                                    "aux_sectors_per_valid", "to_device_s",
                                    "aux_to_device_s", "device_table_mib",
-                                   "device_aux_mib", "layout_peak_gib")
+                                   "device_aux_mib", "layout_peak_gib",
+                                   "path", "chunk")
                  if k in r}
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces, launches=path_launches[name],

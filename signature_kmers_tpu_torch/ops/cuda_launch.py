@@ -85,8 +85,7 @@ ENTRY_POINTS = {
          PTR, PTR, PTR]),
     "probe_table": (
         "probe_table", "skt_probe_table",
-        [PTR, PTR, PTR, PTR, PTR, LONG, PTR, PTR, LONG, INT, PTR, PTR, PTR,
-         PTR]),
+        [PTR, PTR, LONG, PTR, PTR, LONG, INT, PTR, PTR, PTR, PTR]),
     "device_automaton_packed": (
         "automaton", "skt_automaton_packed",
         [PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, FLOAT, PTR]),

@@ -24,7 +24,9 @@ variant each: probe_bucket (the cuckoo table, rows padded to whole
 store with its aliasing, one word or record per BDZ vertex;
 csrc/probe_cmph.cu).  table_probe picks a table's probe; distance_filter
 is the matrix-distance filter that runs as torch operations after an
-aux probe on those layouts.
+aux probe on those layouts.  probe_table walks a mesh shard of the
+linear-probing table (kernel L2, csrc/probe_table.cu) on linear_rows'
+8-byte key and 16-byte value rows.
 """
 
 from __future__ import annotations
@@ -685,60 +687,81 @@ probe_cmph_aux.launches = 0
 _EMPTY = 0xFFFF_FFFF  # an empty slot's key words
 
 
-def probe_table_reference(key_hi, key_lo, v0, v1, v2, qhi, qlo,
-                          max_probes: int):
+def linear_rows(key_hi, key_lo, v0, v1, v2):
+    """The device layout of a linear-probing table from its five int32
+    word arrays (S slots each): keys (S, 2) = (key_hi, key_lo) per slot,
+    8 bytes, and vals (S, 4) = (v0, v1, v2, 0) per slot, 16 bytes inside
+    one sector, both int32 on the words' device (torch ops).  The kernel
+    reads a slot's two key words with one load and a hit's value words
+    with one more."""
+    words = dict(key_hi=key_hi, key_lo=key_lo, v0=v0, v1=v1, v2=v2)
+    if key_hi.dim() != 1:
+        raise ValueError(f"key_hi: a 1-D word array expected, got shape "
+                         f"{tuple(key_hi.shape)}")
+    for name, w in words.items():
+        cl.check(w, name, torch.int32, key_hi.shape)
+    return (torch.stack((key_hi, key_lo), dim=1),
+            torch.stack((v0, v1, v2, torch.zeros_like(v0)), dim=1))
+
+
+def _check_rows(keys, vals):
+    """Raise TypeError or ValueError unless keys and vals are
+    linear_rows' int32 rows of S slots, S a power of two that fits 32
+    bits."""
+    S = keys.shape[0] if keys.dim() == 2 else 0
+    cl.check(keys, "keys", torch.int32, (S, 2))
+    cl.check(vals, "vals", torch.int32, (S, 4))
+    if S == 0 or S & (S - 1) or S > 1 << 32:
+        raise ValueError(f"keys: a power-of-two slot count expected, got "
+                         f"shape {tuple(keys.shape)}")
+
+
+def probe_table_reference(keys, vals, qhi, qlo, max_probes: int):
     """Plain version of probe_table: the JAX package's lock-step rounds
     (ops/probe.py: probe_table), one slot per query a round until each has
-    hit its key or an empty slot, at most max(max_probes, 1) rounds (int64
-    arithmetic, any device)."""
-    mask = key_hi.shape[0] - 1
+    hit its key or an empty slot, at most max(max_probes, 1) rounds, then
+    the hits' value rows (int64 arithmetic, any device)."""
+    mask = keys.shape[0] - 1
     qh = qhi.to(torch.int64) & _M32
     ql = qlo.to(torch.int64) & _M32
     cur = hashing.hash_kmer_t(qh, ql) & mask
     done = torch.zeros(qh.shape, dtype=torch.bool, device=qh.device)
     found = done.clone()
-    words = [torch.zeros_like(qh) for _ in range(3)]
+    slot = torch.zeros_like(cur)
     for _ in range(max(max_probes, 1)):
-        khi = key_hi[cur].to(torch.int64) & _M32
-        klo = key_lo[cur].to(torch.int64) & _M32
-        hit = (khi == qh) & (klo == ql) & ~done
-        empty = (khi == _EMPTY) & ~done
-        words = [torch.where(hit, v[cur].to(torch.int64) & _M32, w)
-                 for v, w in zip((v0, v1, v2), words)]
+        k = keys[cur].to(torch.int64) & _M32
+        hit = (k[..., 0] == qh) & (k[..., 1] == ql) & ~done
+        empty = (k[..., 0] == _EMPTY) & ~done
+        slot = torch.where(hit, cur, slot)
         found |= hit
         done |= hit | empty
         if bool(done.all()):
             break
         cur = (cur + 1) & mask
-    return (found, *(hashing.to_i32(w) for w in words))
+    v = torch.where(found[..., None], vals[slot][..., :3], 0)
+    return (found, *v.movedim(-1, 0).contiguous())
 
 
-def probe_table(key_hi, key_lo, v0, v1, v2, qhi, qlo, max_probes: int):
+def probe_table(keys, vals, qhi, qlo, max_probes: int):
     """Probe a linear-probing table for packed query keys.
 
-    key_hi, key_lo, v0, v1, v2: the table's int32 words (bit containers of
-    uint32), S slots each with S a power of two, an empty slot's key words
-    0xFFFFFFFF; qhi, qlo: int32 query words of any equal shape;
-    max_probes: the table's longest chain.  -> (found bool, r0, r1, r2
-    int32): r* the matched slot's v0..v2 where found, else 0."""
-    tables = dict(key_hi=key_hi, key_lo=key_lo, v0=v0, v1=v1, v2=v2)
-    S = key_hi.shape[0] if key_hi.dim() == 1 else 0
-    for name, t in tables.items():
-        cl.check(t, name, torch.int32, (S,))
-    if S == 0 or S & (S - 1) or S > 1 << 32:
-        raise ValueError(f"key_hi: a power-of-two slot count expected, got "
-                         f"shape {tuple(key_hi.shape)}")
-    shape = tuple(qhi.shape)
+    keys, vals: the table's rows (linear_rows), S slots with S a power of
+    two, an empty slot's key words 0xFFFFFFFF; qhi, qlo: int32 query words
+    (bit containers of uint32) of any equal shape; max_probes: the table's
+    longest chain.  -> (found bool, r0, r1, r2 int32): r* the matched
+    slot's v0..v2 where found, else 0."""
+    _check_rows(keys, vals)
     cl.check(qhi, "qhi", torch.int32)
-    cl.check(qlo, "qlo", torch.int32, shape)
-    if not cl.on_cuda(qhi, qlo, *tables.values()):
-        return probe_table_reference(key_hi, key_lo, v0, v1, v2, qhi, qlo,
-                                     max_probes)
-    outs = _outputs(shape, qhi.device, 3)
+    cl.check(qlo, "qlo", torch.int32, qhi.shape)
+    if not cl.on_cuda(qhi, qlo, keys, vals):
+        return probe_table_reference(keys, vals, qhi, qlo, max_probes)
+    # a key row is one 8-byte load, a value row one 16-byte load
+    cl.check_aligned(8, keys=keys)
+    cl.check_aligned(16, vals=vals)
+    outs = _outputs(tuple(qhi.shape), qhi.device, 3)
     cl.launch("probe_table",
-              [key_hi.data_ptr(), key_lo.data_ptr(), v0.data_ptr(),
-               v1.data_ptr(), v2.data_ptr(), S, qhi.data_ptr(),
-               qlo.data_ptr(), qhi.numel(), max_probes,
+              [keys.data_ptr(), vals.data_ptr(), keys.shape[0],
+               qhi.data_ptr(), qlo.data_ptr(), qhi.numel(), max_probes,
                *(o.data_ptr() for o in outs)],
               qhi.device)
     probe_table.launches += 1

@@ -2,14 +2,18 @@
 
 Keys are partitioned by the top bits of their slot hash (owner_of) into
 independent per-shard open-addressing tables of one common size, stacked
-(n_shards, S).  Every dp row of the mesh probes its own queries against
-every shard, one shard per device of the row; since a key lives in one
-shard only, at most one shard reports a hit for a query and writes
-nonzero words, so the row's results combine exactly by OR on its first
-device (the JAX package combines them with a psum over tp).  Where a row
-spans processes, each rank probes its own cells' shards and the row sums
-their int32 views over its process group (NCCL has no bitwise OR; the
-sum is exact for the same reason).
+(n_shards, S) on the host as the JAX package stacks them.  On the mesh
+each shard is two row arrays (to_mesh: ops/probe.linear_rows, a slot's
+two key words in one 8-byte row, its three value words in a 16-byte
+one), which kernel L2 (ops/probe.probe_table) walks.  Every dp row of
+the mesh probes its own queries against every shard, one shard per
+device of the row; since a key lives in one shard only, at most one
+shard reports a hit for a query and writes nonzero words, so the row's
+results combine exactly by OR on its first device (the JAX package
+combines them with a psum over tp).  Where a row spans processes, each
+rank probes its own cells' shards and the row sums their int32 views
+over its process group (NCCL has no bitwise OR; the sum is exact for
+the same reason).
 
 This replaces the reference's always-fully-resident table
 (ref: cmph_kmer.h:71-83; the reference has no table sharding at all).
@@ -128,17 +132,26 @@ class ShardedKmerTable:
         return ShardedKmerTable.build(*table.occupied(), n_shards, config)
 
     def to_mesh(self, mesh) -> list:
-        """The shards on the mesh: cells[d][t] = shard t's five word
-        arrays as int32 tensors on device (d, t); shard t goes to every
-        device of tp column t, and only this process's cells are filled
-        (None elsewhere).  The mesh's tp size must be n_shards."""
+        """The shards on the mesh: cells[d][t] = shard t's device rows
+        (ops/probe.linear_rows: keys (S, 2) and vals (S, 4) int32) on
+        device (d, t); shard t goes to every device of tp column t, and
+        only this process's cells are filled (None elsewhere).  The mesh's
+        tp size must be n_shards."""
         if mesh.shape["tp"] != self.n_shards:
             raise ValueError(f"a table of {self.n_shards} shards on a mesh "
                              f"of tp {mesh.shape['tp']}")
         words = (self.key_hi, self.key_lo, self.v0, self.v1, self.v2)
-        return [[tuple(torch.from_numpy(np.ascontiguousarray(w[t])
-                                        .view(np.int32)).to(dev)
-                       for w in words) if mesh.is_local(d, t) else None
+        rows = {}
+
+        def shard_rows(t):  # built on the host once per shard
+            if t not in rows:
+                rows[t] = probe_ops.linear_rows(*(
+                    torch.from_numpy(np.ascontiguousarray(w[t])
+                                     .view(np.int32)) for w in words))
+            return rows[t]
+
+        return [[tuple(x.to(dev) for x in shard_rows(t))
+                 if mesh.is_local(d, t) else None
                  for t, dev in enumerate(row)]
                 for d, row in enumerate(mesh.devices)]
 
@@ -150,9 +163,9 @@ def probe_sharded(mesh, cells, qhi, qlo, max_probes: int):
     (bit containers of the uint32 words), the same on every rank.  Row d
     of the mesh takes the d-th contiguous block of the queries
     (split_rows), each of its (local) devices probes the block against
-    its shard (ops/probe.probe_table), and the row's results are combined
-    (combine_row).  -> (found bool, r0, r1, r2 int32), (M,) each, on this
-    process's first cell, in query order."""
+    its shard's rows (ops/probe.probe_table), and the row's results are
+    combined (combine_row).  -> (found bool, r0, r1, r2 int32), (M,)
+    each, on this process's first cell, in query order."""
     out_dev = mesh.home
     rows = {}
     for d, ((a, b), row, cell_row) in enumerate(zip(

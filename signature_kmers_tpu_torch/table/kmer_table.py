@@ -7,8 +7,10 @@ that holds one is converted to the cuckoo layout on load
 (models/pipeline.load_data_dir), as the JAX package does, so a data dir's
 store is only read and probed on the host here (table-tool's info, dump
 and verify).  KmerTable.build places keys in the same layout for the
-mesh's linear shards (parallel/sharded_table.py), whose device probe is
-ops/probe.probe_table.
+mesh's linear shards (parallel/sharded_table.py).  On the device a shard
+is two row arrays instead of the five words,
+ops/probe.linear_rows' keys (S, 2) = (key_hi, key_lo) and vals (S, 4) =
+(v0, v1, v2, 0) per slot, which its probe, ops/probe.probe_table, walks.
 """
 
 from __future__ import annotations

@@ -11,9 +11,11 @@ windows per thread.  The build's kernels take a warp per sequence
 sorted entries with a thread per small k-mer group and a warp per large
 one (selection): build_rows, select_windows and select_tile_edges; the
 build's corpus at the reference's scale on disk: build_corpus.  The
-linear probe takes a thread per query: linear_cases (chains that wrap past
-the last slot, walks cut at max_probes).  Also the exact host route of the
-distance mask (distance_found_host), for checks.
+linear probe walks a query's chain over 8-byte key rows, four to a
+32-byte sector: linear_cases (chains that wrap past the last slot or
+cross a sector, walks cut at max_probes, a table of one sector).  Also
+the exact host route of the distance mask (distance_found_host), for
+checks.
 
 Run as a module it is the rank entry point of multi-process runs
 (rank_main: the CLI, or the mesh programs on a process-spanning mesh), used by
@@ -297,11 +299,17 @@ def cmph_cases(n: int, seed: int):
 
 def linear_cases(seed: int):
     """(label, table, qhi, qlo, max_probes) cases of the linear probe
-    (ops/probe.probe_table) on KmerTable.build layouts of 1024 slots:
-    chains at load 0.6 with members, aliens and a query of two
-    0xFFFFFFFF words (it "hits" an empty slot); the same walks cut at 1
-    slot and at 0 (taken as 1); keys crowded onto the last slots, whose
-    chains wrap past slot 1023 to slot 0; and a table with no key."""
+    (ops/probe.probe_table) on KmerTable.build layouts: chains at load 0.6
+    in 1024 slots with members, aliens and a query of two 0xFFFFFFFF words
+    (it "hits" an empty slot); the same walks cut at 1 slot and at 0
+    (taken as 1); keys crowded onto the last slots, whose chains wrap past
+    slot 1023 to slot 0; a table with no key; keys and aliens whose home
+    is the last slot of a 32-byte key sector (slot 4k + 3), so that their
+    walks cross into the next sector, and from slot 1023 to slot 0; and a
+    table of four slots, one 32-byte key sector, holding three keys of
+    home slot 3, whose walks wrap inside that sector (3, 0, 1) and are cut
+    at max_probes."""
+    from .core.config import TableConfig
     from .ops import hashing
     from .table.kmer_table import KmerTable
 
@@ -317,8 +325,7 @@ def linear_cases(seed: int):
         return [rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(
             np.uint32) for _ in range(3)]
 
-    def queries(t, hi, lo, n_alien):
-        ah, al = keys(n_alien)
+    def queries(hi, lo, ah, al):
         qh = np.concatenate([hi, ah, [0xFFFFFFFF]]).astype(np.uint32)
         ql = np.concatenate([lo, al, [0xFFFFFFFF]]).astype(np.uint32)
         order = rng.permutation(qh.shape[0])
@@ -326,19 +333,32 @@ def linear_cases(seed: int):
 
     hi, lo = keys(600)
     t = KmerTable.build(hi, lo, *values(600))
-    qh, ql = queries(t, hi, lo, 501)
+    qh, ql = queries(hi, lo, *keys(501))
     # keys whose home slot is one of the last four: their chains wrap
     ch, cl = keys(200_000)
-    last = (hashing.hash_kmer(ch, cl) & np.uint32(1023)) >= 1020
+    home = hashing.hash_kmer(ch, cl) & np.uint32(1023)
+    last = home >= 1020
     wh, wl = ch[last][:24], cl[last][:24]
     w = KmerTable.build(wh, wl, *values(wh.shape[0]))
-    wqh, wql = queries(w, wh, wl, 40)
+    wqh, wql = queries(wh, wl, *keys(40))
     empty = KmerTable.build(hi[:0], lo[:0], *values(0))
+    # homes at the last slot of a sector: 300 keys on 256 such slots
+    edge = (home & np.uint32(3)) == 3
+    eh, el = ch[edge], cl[edge]
+    e = KmerTable.build(eh[:300], el[:300], *values(300))
+    eqh, eql = queries(eh[:300], el[:300], eh[300:400], el[300:400])
+    # three keys in four slots, all at home slot 3: they fill 3, 0, 1
+    th, tl = eh[-3:], el[-3:]
+    tiny = KmerTable.build(th, tl, *values(3),
+                           TableConfig(min_size=4, load_factor=0.8))
+    tqh, tql = queries(th, tl, *keys(40))
     return [("chains", t, qh, ql, t.max_probes),
             ("cut at 1 slot", t, qh, ql, 1),
             ("max_probes 0", t, qh, ql, 0),
             ("wrapping chains", w, wqh, wql, w.max_probes),
-            ("no key", empty, qh, ql, empty.max_probes)]
+            ("no key", empty, qh, ql, empty.max_probes),
+            ("sector crossings", e, eqh, eql, e.max_probes),
+            ("four slots", tiny, tqh, tql, tiny.max_probes)]
 
 
 def distance_lengths(B: int, seed: int):

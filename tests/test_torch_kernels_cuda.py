@@ -512,19 +512,20 @@ def test_probe_cmph(dev):
             assert int((win[2] & ~found).sum()) > 0
 
 
-@pytest.mark.parametrize("case", range(5))
+@pytest.mark.parametrize("case", range(7))
 def test_probe_table(dev, case):
-    """The linear probe (one thread per query) against its plain version:
-    chains, walks cut at max_probes, wrapping chains, an empty table, an
-    odd query count; every output word, hits and misses alike."""
+    """The linear probe on its device rows against its plain version:
+    chains, walks cut at max_probes, wrapping chains, an empty table,
+    walks across 32-byte key sectors, a table of one sector, an odd query
+    count; every output word, hits and misses alike, and one launch."""
     label, t, qh, ql, max_probes = kernel_cases.linear_cases(seed=8)[case]
-    tabs = [_as_int32(a, dev) for a in (t.key_hi, t.key_lo, t.v0, t.v1,
-                                        t.v2)]
+    keys, vals = probe.linear_rows(*(_as_int32(a, dev) for a in (
+        t.key_hi, t.key_lo, t.v0, t.v1, t.v2)))
     q = (_as_int32(qh, dev), _as_int32(ql, dev))
     before = probe.probe_table.launches
-    got = probe.probe_table(*tabs, *q, max_probes)
+    got = probe.probe_table(keys, vals, *q, max_probes)
     assert probe.probe_table.launches == before + 1
-    want = probe.probe_table_reference(*tabs, *q, max_probes)
+    want = probe.probe_table_reference(keys, vals, *q, max_probes)
     for g, w in zip(got, want):
         assert torch.equal(g, w), label
     found = want[0].cpu().numpy()
@@ -532,9 +533,9 @@ def test_probe_table(dev, case):
         assert 0 < found.sum() < found.size
     if label == "cut at 1 slot":  # walks past their first slot are cut
         assert found.sum() < probe.probe_table_reference(
-            *tabs, *q, t.max_probes)[0].sum().item()
-    with pytest.raises(ValueError):
-        probe.probe_table(*(x[:1000] for x in tabs), *q, max_probes)
+            keys, vals, *q, t.max_probes)[0].sum().item()
+    with pytest.raises(ValueError, match="power-of-two"):
+        probe.probe_table(keys[:-1], vals[:-1], *q, max_probes)
 
 
 def test_nccl_world_of_one(dev):

@@ -21,11 +21,16 @@ Tolerance: exact equality throughout, apart from what is said below.
 3. The automaton: the plain version and the record packing against the
    JAX package's device_automaton + pack_records, every output field and
    the packed int32 block (float32 mad included).
+4. The kernels' C entry points: each ctypes signature in
+   ops/cuda_launch.ENTRY_POINTS against its declaration in csrc, type by
+   type (a launch with the wrong arguments shows only on the card).
 
 One file, so that the suite's scheduler (pytest-xdist --dist loadfile)
 hands these cheap tests to one worker."""
 
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -45,6 +50,7 @@ from signature_kmers_tpu.table import wide_table as jwt
 from signature_kmers_tpu_torch import testing
 from signature_kmers_tpu_torch.io import fasta
 from signature_kmers_tpu_torch.ops import automaton as ta
+from signature_kmers_tpu_torch.ops import cuda_launch as cl
 from signature_kmers_tpu_torch.ops import hashing as th
 from signature_kmers_tpu_torch.ops import kmer_pack as tk
 from signature_kmers_tpu_torch.ops import probe as tprobe
@@ -936,3 +942,26 @@ def test_edge_rows_match_jax(edge_rows, name):
     np.testing.assert_array_equal(tpacked[rows], jpacked[rows])
     assert EXPECT[name]({key: v[rows] for key, v in jout.items()},
                         jpacked[rows]).all()
+
+
+# -- 4. the C entry points ---------------------------------------------------
+
+_C_TYPES = {"const void *": cl.PTR, "void *": cl.PTR, "int": cl.INT,
+            "long": cl.LONG, "unsigned": cl.UINT,
+            "unsigned long long": cl.ULONGLONG, "float": cl.FLOAT}
+
+
+@pytest.mark.parametrize("name", sorted(cl.ENTRY_POINTS))
+def test_entry_point_matches_its_c_declaration(name):
+    """The ctypes arguments of an entry point, and the stream after them,
+    are those of its extern "C" declaration, in number and type."""
+    library, symbol, argtypes = cl.ENTRY_POINTS[name]
+    src = (Path(cl.__file__).parents[1] / "csrc" / f"{library}.cu"
+           ).read_text()
+    decl = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', src)
+    assert decl, symbol
+    declared = []
+    for param in decl.group(1).split(","):
+        ctype = re.fullmatch(r"(.*?)\s*\w+", param.strip()).group(1)
+        declared.append(_C_TYPES[" ".join(ctype.replace("*", " *").split())])
+    assert argtypes + [cl.PTR] == declared, symbol

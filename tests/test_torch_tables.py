@@ -13,7 +13,8 @@
    - the sharded tables (ShardedWideTable, ShardedBucketTable,
      ShardedKmerTable) and KmerTable.build against the JAX package's,
      array for array (numpy on both sides);
-   - the linear probe's plain version against the JAX probe_table;
+   - the linear probe's plain version on the device rows (linear_rows)
+     against the JAX probe_table on the five words, and the rows;
    - make_mesh's grid, the single-process distributed surface, the
      refusals (SKT_COORDINATOR, a CMPH store on a mesh: the JAX
      package's NotImplementedError), and build-signatures --mesh on an
@@ -67,7 +68,7 @@ from signature_kmers_tpu_torch.models import pipeline as torch_pipeline
 from signature_kmers_tpu_torch.models.function_caller import (FunctionCaller,
                                                               pad_bucketed)
 from signature_kmers_tpu_torch.models.matrix_distance import MatrixDistance
-from signature_kmers_tpu_torch.ops import probe
+from signature_kmers_tpu_torch.ops import hashing, probe
 from signature_kmers_tpu_torch.parallel import distributed
 from signature_kmers_tpu_torch.parallel import mesh as mesh_mod
 from signature_kmers_tpu_torch.parallel import parallel_caller as port_pc
@@ -740,14 +741,16 @@ def test_kmer_table_build_matches_jax(n, min_size):
 # ---- the linear probe: plain version against the JAX probe_table -----------
 
 
-@pytest.mark.parametrize("case", range(5))
+@pytest.mark.parametrize("case", range(7))
 def test_probe_table_matches_jax(case):
     label, t, qh, ql, max_probes = testing.linear_cases(seed=8)[case]
     want = jax_probe.probe_table(t.key_hi, t.key_lo, t.v0, t.v1, t.v2, qh,
                                  ql, max_probes)
-    words = [torch.from_numpy(a.view(np.int32)) for a in
-             (t.key_hi, t.key_lo, t.v0, t.v1, t.v2, qh, ql)]
-    got = probe.probe_table(*words, max_probes)
+    keys, vals = probe.linear_rows(*(torch.from_numpy(a.view(np.int32))
+                                     for a in (t.key_hi, t.key_lo, t.v0,
+                                               t.v1, t.v2)))
+    got = probe.probe_table(keys, vals, torch.from_numpy(qh.view(np.int32)),
+                            torch.from_numpy(ql.view(np.int32)), max_probes)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]),
                                   err_msg=label)
     for g, w in zip(got[1:], want[1:]):
@@ -759,21 +762,62 @@ def test_probe_table_matches_jax(case):
                       (t.key_hi.astype(np.int64) << 24) | t.key_lo)
     if label in ("chains", "wrapping chains"):
         np.testing.assert_array_equal(found, members)
+    if label in ("sector crossings", "four slots"):
+        keyed = qh != 0xFFFFFFFF  # the two-EMPTY-word query may "hit"
+        np.testing.assert_array_equal(found[keyed], members[keyed])
+        # chains that leave their home's sector, or wrap to slot 0
+        slots = np.nonzero(t.key_hi != 0xFFFFFFFF)[0]
+        homes = hashing.hash_kmer(t.key_hi[slots], t.key_lo[slots]) & (
+            t.size - 1)
+        assert ((slots // 4 != homes // 4) & (slots > homes)).any() or (
+            label == "four slots")
+        assert (slots < homes).any()
     if label == "cut at 1 slot":
         assert 0 < found.sum() < members.sum()
     if label == "no key":  # only the two-EMPTY-word query "hits"
         assert found.sum() == 1
 
 
+def _words(t):
+    return [torch.from_numpy(a.view(np.int32)) for a in
+            (t.key_hi, t.key_lo, t.v0, t.v1, t.v2)]
+
+
 def test_probe_table_refuses_bad_tables():
     t = testing.linear_cases(seed=8)[0][1]
-    words = [torch.from_numpy(a.view(np.int32)) for a in
-             (t.key_hi, t.key_lo, t.v0, t.v1, t.v2)]
-    q = (words[0][:10], words[1][:10])
+    keys, vals = probe.linear_rows(*_words(t))
+    q = (keys[:10, 0].contiguous(), keys[:10, 1].contiguous())
     with pytest.raises(ValueError, match="power-of-two"):
-        probe.probe_table(*(w[:1000] for w in words), *q, 4)
+        probe.probe_table(keys[:1000], vals[:1000], *q, 4)
+    with pytest.raises(ValueError, match="shape"):
+        probe.probe_table(keys, vals[:512], *q, 4)
+    with pytest.raises(ValueError, match="shape"):
+        probe.probe_table(keys[:, :1].contiguous(), vals, *q, 4)
+    with pytest.raises(ValueError, match="shape"):
+        probe.probe_table(keys, vals, q[0], q[1][:9], 4)
     with pytest.raises(TypeError):
-        probe.probe_table(*words[:4], words[4].long(), *q, 4)
+        probe.probe_table(keys, vals.long(), *q, 4)
+    with pytest.raises(TypeError):
+        probe.probe_table(keys, vals, q[0].long(), q[1], 4)
+
+
+@pytest.mark.parametrize("case", [0, 3, 6])
+def test_linear_rows(case):
+    t = testing.linear_cases(seed=8)[case][1]
+    words = _words(t)
+    keys, vals = probe.linear_rows(*words)
+    assert keys.shape == (t.size, 2) and vals.shape == (t.size, 4)
+    assert keys.dtype == vals.dtype == torch.int32
+    for col, w in zip((keys[:, 0], keys[:, 1], vals[:, 0], vals[:, 1],
+                       vals[:, 2]), words):
+        assert torch.equal(col, w)
+    assert not vals[:, 3].any()
+    with pytest.raises(ValueError, match="1-D"):
+        probe.linear_rows(words[0][None], *words[1:])
+    with pytest.raises(ValueError, match="shape"):
+        probe.linear_rows(*words[:4], words[4][:-1])
+    with pytest.raises(TypeError):
+        probe.linear_rows(*words[:2], words[2].long(), *words[3:])
 
 
 # ---- the mesh and the single-process surface ------------------------------
