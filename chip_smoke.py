@@ -6,8 +6,9 @@
 Phases, in order; any failure exits non-zero:
 
 1. environment: torch/CUDA versions and the card's name and power limit;
-   builds the eight CUDA kernel libraries from the checkout (one nvcc
-   each, in parallel; csrc/probe_wide.cu holds three entry points) and
+   builds the nine CUDA kernel libraries from the checkout (one nvcc
+   each, in parallel; csrc/probe_wide.cu holds three entry points,
+   csrc/dma_probes.cu six) and
    the native host runtime (g++), which must build.
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes: pack (8192 sequences of transfer rows at L 384 from
@@ -49,6 +50,22 @@ Phases, in order; any failure exits non-zero:
    outputs are required; hi/lo are compared under the call mask, the
    probe's fm under valid, the aux probe's words under found (and 0
    elsewhere), kernels 8 and 9 everywhere.
+2p. the probes: the six Pallas probes of benchmarks/pallas_dma_bench.py
+   (ops/dma_probes) on the JAX script's inputs, made on the card from
+   --seed: the 1 GiB tables of 512-byte and 16-byte rows, 8192 row
+   indices, 8192 (rpd <= 64) or 2048 block starts per rpd, the 4 MiB
+   table, its 8-bit 512 rows and 4096 x 128 lane indices.  Launch counts
+   are reset, then each wrapper runs once at every parameter the script
+   sweeps (sweep_bw at chunks of 1024 and 4096 rows, 8 reps and odd 1
+   and 3, copies of 128 and 32 rows; row_dma_gather at q 4, 16, 64;
+   block_dma_gather at rpd 1, 8, 64, 512; the three gathers, v_take_axis0
+   also on a 384-row table, one panel); the counts are read, and every
+   output is held bit for bit to its plain version on the same card
+   tensors.  Then each is timed as issued and held: sweep_bw's GB/s and
+   share of 3.35 TB/s beside a torch sum over the same bytes, ns per row
+   at each q, ns per copy and GB/s at each rpd (with the ring's depth),
+   and ns per row of the gathers beside index_select (v_take_axis0,
+   v_onehot_mxu) and torch.gather (v_take_lanes).
 3. the main path at full size: a ~20M-key WideKmerTable, 16384 uniform
    300-aa queries with 3% point mutations and 16384 U[60, 600] queries,
    each called through FunctionCaller(device="cuda").call_batch with
@@ -56,7 +73,11 @@ Phases, in order; any failure exits non-zero:
    read just after, and the phase fails if it calls the plain
    expand_rows16; 512 sampled rows per set must equal the exact host
    route (host table probe -> golden automaton -> find_best_call).
-   Each set is called once to warm up, then three timed times.
+   Each set is called once to warm up, then three timed times.  Then one
+   more uniform300 call under utils/profiling.trace (torch.profiler):
+   the device's busy share of that call's window, from the trace's
+   kernel and copy events, and its busy time over the fastest untraced
+   call of the set (the profiler's CPU tracing stretches the window).
 3b. the keep-hits path (--debug-hits): 2048 uniform rows through
    call_batch(keep_hits=True), warmed up once, then three timed calls;
    it fails unless probe_wide_aux launched, and if the standalone pack
@@ -162,7 +183,10 @@ Phases, in order; any failure exits non-zero:
    table's keys and sampled values, no recall mismatch line); every
    build-kernel call is held bit for bit to its plain version on the same
    card tensors; the kept set and the kept sequence ids must equal the
-   host route (_extract_windows_np + _select_np over the whole corpus).
+   host route (_extract_windows_np + _select_np over the whole corpus),
+   which runs in a spawned process of its own beside phases 3i, 3g and
+   3j and is joined after them (with --host-route-inline, joined before
+   3i, so that no phase runs beside it).
    Prints the k-mer group-size histogram, the build's seconds per phase
    (run_build's names), process_kmers split into its parts (transfer
    rows, upload, kernel 6, sorts, kernel 7 with the kept ids, fetch,
@@ -258,6 +282,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import shutil
@@ -614,14 +639,85 @@ def group_histogram(k1s) -> str:
             f"{int(sizes.sum())}")
 
 
+def _host_route(root: str, work: str):
+    """The child of HostRouteCheck: the host route (_extract_windows_np +
+    _select_np) over work/inputs.npz, compared with work/kept.npz; writes
+    work/result.json."""
+    import numpy as np
+
+    sys.path.insert(0, root)
+    from signature_kmers_tpu_torch.models import signature_builder
+
+    work = Path(work)
+    t0 = time.perf_counter()
+    with np.load(work / "inputs.npz") as z:
+        host_win = signature_builder._extract_windows_np(
+            z["codes"], z["fidx"], z["plen"], z["sids"], 8)
+        n_seqs = int(z["plen"].shape[0])
+    host_kept, host_sids = signature_builder._select_np(*host_win,
+                                                        threshold=0.8)
+    del host_win
+    with np.load(work / "kept.npz") as want:
+        bad = [f for f in KEPT_FIELDS
+               if not np.array_equal(getattr(host_kept, f), want[f])]
+        same_sids = np.array_equal(np.unique(host_sids), want["sids"])
+    (work / "result.json").write_text(json.dumps(dict(
+        bad=bad, same_sids=bool(same_sids), n_seqs=n_seqs,
+        seconds=time.perf_counter() - t0)))
+
+
+class HostRouteCheck:
+    """Phase 3d's exact check of the kept set against the numpy host route
+    over the whole corpus, run in a spawned process beside the phases
+    after 3d: its inputs and the build's kept set go to files in work,
+    and finish() waits for the verdict and fails on any difference."""
+
+    def __init__(self, work: Path, inputs: dict, kept, kept_sids: set):
+        import multiprocessing
+
+        import numpy as np
+
+        work.mkdir(parents=True, exist_ok=True)
+        self.work = work
+        np.savez(work / "inputs.npz", **inputs)
+        np.savez(work / "kept.npz", sids=np.array(sorted(kept_sids),
+                                                  dtype=np.int64),
+                 **{f: getattr(kept, f) for f in KEPT_FIELDS})
+        self.started = time.perf_counter()
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=_host_route, args=(str(Path(__file__).resolve().parent),
+                                      str(work)))
+        self.proc.start()
+
+    def finish(self, card: str):
+        self.proc.join()
+        waited = time.perf_counter() - self.started
+        if self.proc.exitcode != 0:
+            fail(f"build: the host route's process exited "
+                 f"{self.proc.exitcode}")
+        r = json.loads((self.work / "result.json").read_text())
+        print(f"build: kept set vs the host route (_extract_windows_np + "
+              f"_select_np over all {r['n_seqs']} sequences, "
+              f"{r['seconds']:.1f} s in its own process, joined "
+              f"{waited:.1f} s after 3d started it): columns differing "
+              f"{r['bad']}, kept sids "
+              f"{'equal' if r['same_sids'] else 'differ'} [{card}]")
+        if r["bad"] or not r["same_sids"]:
+            fail("build: the kept set differs from the host route")
+        shutil.rmtree(self.work, ignore_errors=True)
+        return r
+
+
 def build_phase(card: str, report: dict, differences, plain_of: dict,
-                call_wrappers: dict, work: Path, corpus) -> dict:
+                call_wrappers: dict, work: Path, corpus,
+                host_route_beside: bool = True) -> dict:
     """Phase 3d (module docstring): the port's build of the reference's
     300K-sequence corpus (corpus: its fasta and definitions dirs) on the
     card, with recall, into work/kd, which it leaves for phase 3i.  Adds
     the two build kernels' entries to report; -> (the launches of the
     build's run, the build for phase 3i: its data dir, kept set,
-    statistics, phase seconds and concatenated corpus)."""
+    statistics, phase seconds and concatenated corpus, and the host
+    route's check when host_route_beside, which the caller finishes)."""
     import shutil
 
     import numpy as np
@@ -713,37 +809,28 @@ def build_phase(card: str, report: dict, differences, plain_of: dict,
         print(f"build: k-mer group sizes of the 300K corpus: "
               f"{group_histogram(sel_args[0])}")
 
-        # the kept set against the host route (numpy twins)
+        # the kept set against the host route (numpy twins), in a process
+        # of its own beside the later phases (joined before the report) or,
+        # not host_route_beside, joined here
         codes_rows, starts, fidx, plen = (t.cpu().numpy() for t in ext_args)
         sids = sids_t.cpu().numpy()
-        t0 = time.perf_counter()
         first = np.cumsum(plen, dtype=np.int64) - plen
         pos = (np.arange(int(plen.sum()), dtype=np.int64)
                + np.repeat(starts.astype(np.int64) - first, plen))
         codes = codes_rows[pos]
         del pos
-        host_win = signature_builder._extract_windows_np(
-            codes, fidx, plen, sids, 8)
-        host_kept, host_sids = signature_builder._select_np(
-            *host_win, threshold=0.8)
-        host_s = time.perf_counter() - t0
-        del host_win
-        bad = [f for f in ("hi", "lo", "avg_from_end", "function_index",
-                           "mean", "median", "var")
-               if not np.array_equal(getattr(host_kept, f),
-                                     getattr(res.kept, f))]
-        same_sids = res.builder.stats.seqs_with_a_signature == set(
-            host_sids.tolist())
-        print(f"build: kept set vs the host route (_extract_windows_np + "
-              f"_select_np over all {plen.shape[0]} sequences, "
-              f"{host_s:.1f} s): columns differing {bad}, kept sids "
-              f"{'equal' if same_sids else 'differ'}")
-        if bad or not same_sids:
-            fail("build: the kept set differs from the host route")
+        host_check = HostRouteCheck(
+            work / "host_route", dict(codes=codes, fidx=fidx, plen=plen,
+                                      sids=sids),
+            res.kept, res.builder.stats.seqs_with_a_signature)
+        if not host_route_beside:
+            host_check.finish(card)
+            host_check = None
         split = process_kmers_split(res.builder, codes, sids, fidx, plen,
                                     n_kept, card)
         one = dict(kd=kd, kept=res.kept, stats=res.builder.stats,
-                   timings=res.timings, seqs=(codes, sids, fidx, plen))
+                   timings=res.timings, seqs=(codes, sids, fidx, plen),
+                   host_check=host_check)
     except BaseException:
         shutil.rmtree(kd, ignore_errors=True)
         raise
@@ -1708,10 +1795,32 @@ def stores_phase(card: str, call_wrappers: dict, work: Path, corpus,
         return rc, so.getvalue()
 
     # info and verify at this size; export-nudb and import of the export
-    # (~70 s here) run in phase 3i on its 10-genome slice
-    tool("info", kd)
-    if tool("verify", kd) != (0, "stored-key round trip: OK\n"
-                                 "false hits on random probes: 0\n"):
+    # (~70 s here) run in phase 3i on its 10-genome slice.  Each
+    # WideKmerTable.occupied() inside them is timed: it also paces 3h's
+    # from_table and 3j's sharding
+    from signature_kmers_tpu_torch.table.wide_table import WideKmerTable
+
+    occupied, occ_times = WideKmerTable.occupied, []
+
+    def timed_occupied(self):
+        t0 = time.perf_counter()
+        try:
+            return occupied(self)
+        finally:
+            occ_times.append((self.n_items, time.perf_counter() - t0))
+
+    WideKmerTable.occupied = timed_occupied
+    try:
+        tool("info", kd)
+        verified = tool("verify", kd)
+    finally:
+        WideKmerTable.occupied = occupied
+    for n_items, sec in occ_times:
+        print(f"WideKmerTable.occupied() of {n_items} keys in table-tool: "
+              f"{sec:.4f} s [{card}]")
+    out["occupied_s"] = [sec for _, sec in occ_times]
+    if verified != (0, "stored-key round trip: OK\n"
+                       "false hits on random probes: 0\n"):
         fail("phase 3g: table-tool verify did not pass")
     with np.load(kd / "kmer_data.npz") as a:
         first_npz = {k: a[k] for k in a.files}
@@ -3717,10 +3826,240 @@ def _alive(pid: int) -> bool:
         return False
 
 
+PROBE_W_ROWS = 1 << 21      # pallas_dma_bench.py: 1 GiB of 512-byte rows
+PROBE_4_ROWS = 1 << 26      # and of 16-byte rows
+PROBE_SWEEP_REPS = 8        # its sweeps per call (:153)
+PROBE_N_DMA = 8192          # its row copies (:167), and block copies at
+PROBE_N_BLOCK = 2048        # rpd <= 64, else 2048 (:266)
+PROBE_TV, PROBE_NG = 8192, 4096  # its on-chip table rows, gathered rows
+TC_INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense
+
+
+def probes_phase(card: str, seed: int) -> dict:
+    """Phase 2p: the six Pallas probes (ops/dma_probes) on the JAX
+    script's inputs, made on the card from seed.  Each wrapper runs once
+    at every swept parameter between a reset and a read of the launch
+    counts, each output is then held to its plain version, and each is
+    timed.  -> {name: report entry} (the entries' launches included)."""
+    import torch
+
+    from signature_kmers_tpu_torch.ops import dma_probes as dp
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(hi, shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    tab_w = dp.make_table_w(PROBE_W_ROWS, dev)
+    tab_4 = dp.make_table_4(PROBE_4_ROWS, dev)
+    idx = ints(PROBE_4_ROWS, (PROBE_N_DMA,))
+    # the script draws starts in [0, R - rpd): integers' high is exclusive
+    starts = {rpd: ints(PROBE_W_ROWS - rpd,
+                        (PROBE_N_DMA if rpd <= 64 else PROBE_N_BLOCK,))
+              for rpd in (1, 8, 64, 512)}
+    tab_v = dp.make_table_w(PROBE_TV, dev)
+    gidx = ints(PROBE_TV, (PROBE_NG, 1))
+    tab_panel = tab_v[:dp.PANEL_ROWS]
+    pidx = ints(dp.PANEL_ROWS, (PROBE_NG, 1))
+    small = (tab_v[:512] & 0xFF).contiguous()
+    midx = ints(512, (PROBE_NG, 1))
+    tab_r = dp.make_table_w(PROBE_NG, dev)
+    lidx = ints(128, (PROBE_NG, 128))
+    torch.cuda.synchronize()
+    print(f"probes: inputs made in {time.perf_counter() - t_phase:.1f} s "
+          f"(tables of {tab_w.numel() * 4 >> 20} MiB and "
+          f"{tab_4.numel() * 4 >> 20} MiB)")
+
+    # (kernel, label, args, kernel-only kwargs): every swept parameter
+    calls = []
+    for chunk in (1024, 4096):
+        for reps in (PROBE_SWEEP_REPS, 1, 3):
+            for copy in (dp.SWEEP_COPY_ROWS, 32):
+                calls.append(("sweep_bw", f"chunk {chunk} rows, {reps} "
+                              f"reps, copies of {copy} rows",
+                              (tab_w, chunk, reps), {"copy_rows": copy}))
+    for q in (4, 16, 64):
+        calls.append(("row_dma_gather", f"q {q}", (tab_4, idx, q), {}))
+    for rpd, st in starts.items():
+        calls.append(("block_dma_gather", f"rpd {rpd}",
+                      (tab_w, st, rpd, st.numel()), {}))
+    calls += [("v_take_axis0", f"{PROBE_TV}-row table", (tab_v, gidx), {}),
+              ("v_take_axis0", f"{dp.PANEL_ROWS}-row table (one panel)",
+               (tab_panel, pidx), {}),
+              ("v_onehot_mxu", "512-row 8-bit table", (small, midx), {}),
+              ("v_take_lanes", f"{PROBE_NG} x 128", (lidx, tab_r), {})]
+    for fn, _ in dp.PROBES.values():
+        fn.launches = 0
+    outs = [dp.PROBES[name][0](*a, **kw) for name, _, a, kw in calls]
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, (fn, _) in dp.PROBES.items()}
+    print(f"probes path launches: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"phase 2p: {name} was not launched")
+    entries = {name: dict(mismatches=0, max_abs_err=0.0, launches=n,
+                          checked=[])
+               for name, n in launches.items()}
+    for (name, label, a, _), got in zip(calls, outs):
+        want = dp.PROBES[name][1](*a)
+        if got.shape != want.shape:
+            fail(f"phase 2p: {name} ({label}) returned shape "
+                 f"{tuple(got.shape)}, its plain version {tuple(want.shape)}")
+        d = (got.to(torch.int64) - want.to(torch.int64)).abs()
+        n_bad = int((d != 0).sum())
+        e = entries[name]
+        e["mismatches"] += n_bad
+        e["max_abs_err"] = max(e["max_abs_err"], float(d.max()))
+        e["checked"].append(label)
+        print(f"probe {name} ({label}): {n_bad} words differ from the "
+              f"plain version")
+        if n_bad:
+            fail(f"phase 2p: {name} ({label}) differs from its plain "
+                 f"version ({n_bad} words)")
+    del outs
+
+    def timed(fn, iters):
+        return time_ms(fn, iters), time_ms(fn, iters, hold=True)
+
+    def plain_ms(name, a):
+        return time_ms(lambda: dp.PROBES[name][1](*a), 3)
+
+    # P1: the sweep's rate, beside a torch reduction over the same bytes
+    e = entries["sweep_bw"]
+    e["curve"] = []
+    for chunk in (1024, 4096):
+        nbytes = PROBE_W_ROWS // chunk * chunk * 512 * PROBE_SWEEP_REPS
+        for copy in (dp.SWEEP_COPY_ROWS, 32):
+            ms, held = timed(lambda: dp.sweep_bw(
+                tab_w, chunk, PROBE_SWEEP_REPS, copy_rows=copy), 5)
+            rate = nbytes / held / 1e6
+            e["curve"].append(dict(chunk_rows=chunk, copy_rows=copy, ms=ms,
+                                   held_ms=held, gb_per_s=rate,
+                                   share_of_3350=rate / 3350))
+            print(f"sweep_bw chunk {chunk} rows ({chunk // 2} KiB), copies "
+                  f"of {copy} rows ({copy // 2} KiB): {ms:.4f} ms as "
+                  f"issued, {held:.4f} held for {nbytes / 1e9:.3f} GB = "
+                  f"{rate:.1f} GB/s, {rate / 3350:.1%} of 3.35 TB/s "
+                  f"[{card}]")
+    main_sweep = e["curve"][0]
+    e.update(ms=main_sweep["ms"], held_ms=main_sweep["held_ms"],
+             plain_ms=plain_ms("sweep_bw", (tab_w, 1024, PROBE_SWEEP_REPS)),
+             nbytes=PROBE_W_ROWS * 512 * PROBE_SWEEP_REPS, ops=0)
+    red_ms = time_ms(lambda: tab_w.sum(dtype=torch.int64), 5)
+    e["stream_yardstick_ms"] = red_ms
+    e["stream_yardstick_gb_per_s"] = tab_w.numel() * 4 / red_ms / 1e6
+    print(f"stream yardstick: torch sum over the same 1 GiB, {red_ms:.4f} ms "
+          f"= {e['stream_yardstick_gb_per_s']:.1f} GB/s, "
+          f"{e['stream_yardstick_gb_per_s'] / 3350:.1%} of 3.35 TB/s "
+          f"[{card}]")
+
+    # P2: ns a row at each q, one issuing thread
+    e = entries["row_dma_gather"]
+    e["curve"] = []
+    for q in (4, 16, 64):
+        ms, held = timed(lambda: dp.row_dma_gather(
+            tab_4, idx, q, check_ranges=False), 5)
+        e["curve"].append(dict(q=q, ms=ms, held_ms=held,
+                               ns_per_row=held * 1e6 / PROBE_N_DMA))
+        print(f"row_dma_gather q {q}: {ms:.4f} ms as issued, {held:.4f} "
+              f"held = {held * 1e6 / PROBE_N_DMA:.1f} ns a row [{card}]")
+    q16 = e["curve"][1]
+    e.update(ms=q16["ms"], held_ms=q16["held_ms"],
+             plain_ms=plain_ms("row_dma_gather", (tab_4, idx, 16)),
+             nbytes=PROBE_N_DMA * (16 + 4) + 4, ops=0)
+
+    # P3: ns a copy and GB/s at each rpd, with the ring that ran
+    e = entries["block_dma_gather"]
+    e["curve"] = []
+    for rpd, st in starts.items():
+        n = st.numel()
+        piece, depth = dp.block_dma_geometry(rpd)
+        ms, held = timed(lambda: dp.block_dma_gather(
+            tab_w, st, rpd, n, check_ranges=False), 5)
+        rate = n * rpd * 512 / held / 1e6
+        e["curve"].append(dict(rpd=rpd, n=n, piece_rows=piece, depth=depth,
+                               ms=ms, held_ms=held,
+                               ns_per_copy=held * 1e6 / n, gb_per_s=rate))
+        print(f"block_dma_gather rpd {rpd} ({rpd // 2} KiB a copy, pieces "
+              f"of {piece} rows, {depth} in flight): {ms:.4f} ms as issued, "
+              f"{held:.4f} held = {held * 1e6 / n:.1f} ns a copy, "
+              f"{rate:.1f} GB/s [{card}]")
+    rpd8 = e["curve"][1]
+    e.update(ms=rpd8["ms"], held_ms=rpd8["held_ms"],
+             plain_ms=plain_ms("block_dma_gather",
+                               (tab_w, starts[8], 8, PROBE_N_DMA)),
+             nbytes=PROBE_N_DMA * (8 * 512 + 4) + 4, ops=0)
+
+    # P4-P6: ns a row beside the library call of the same function.  The
+    # bytes: the indices, the output and the table rows that the indices
+    # select (distinct rows, counted here on the card), each moved once
+    touched = {name: int(torch.unique(ix).numel())
+               for name, ix in (("v_take_axis0", gidx),
+                                ("v_onehot_mxu", midx))}
+    gathers = (
+        ("v_take_axis0", (tab_v, gidx),
+         lambda: tab_v.index_select(0, gidx[:, 0]), "index_select",
+         touched["v_take_axis0"] * 512 + PROBE_NG * (4 + 512), 0),
+        ("v_onehot_mxu", (small, midx),
+         lambda: small.index_select(0, midx[:, 0]), "index_select",
+         touched["v_onehot_mxu"] * 512 + PROBE_NG * (4 + 512),
+         2 * PROBE_NG * 512 * 128),
+        ("v_take_lanes", (lidx, tab_r),
+         functools.partial(torch.gather, tab_r, 1, lidx.long()),
+         "torch.gather", 3 * PROBE_NG * 512, 0))
+    for name, a, lib, lib_name, nbytes, ops in gathers:
+        e = entries[name]
+        fn = dp.PROBES[name][0]
+        ms, held = timed(lambda: fn(*a, check_ranges=False), 20)
+        lib_ms, lib_held = timed(lib, 20)
+        e.update(ms=ms, held_ms=held, plain_ms=plain_ms(name, a),
+                 library_ms=lib_ms, library_held_ms=lib_held,
+                 library=lib_name, nbytes=nbytes, ops=ops,
+                 ns_per_row=held * 1e6 / PROBE_NG)
+        if name in touched:
+            e["distinct_rows"] = touched[name]
+            print(f"{name}: the bound counts {touched[name]} distinct table "
+                  f"rows of {a[0].shape[0]} ({touched[name] * 512} bytes), "
+                  f"{nbytes} bytes in all")
+        print(f"{name}: {ms:.4f} ms as issued, {held:.4f} held = "
+              f"{held * 1e6 / PROBE_NG:.2f} ns a row; {lib_name} "
+              f"{lib_ms:.4f} ms as issued, {lib_held:.4f} held = "
+              f"{lib_held * 1e6 / PROBE_NG:.2f} ns a row [{card}]")
+    e = entries["v_take_axis0"]
+    ms, held = timed(lambda: dp.v_take_axis0(tab_panel, pidx,
+                                             check_ranges=False), 20)
+    e["panel"] = dict(rows=dp.PANEL_ROWS, ms=ms, held_ms=held,
+                      ns_per_row=held * 1e6 / PROBE_NG,
+                      geometry=dp.take_axis0_geometry(dp.PANEL_ROWS, dev))
+    print(f"v_take_axis0 on the {dp.PANEL_ROWS}-row table (a block's "
+          f"shared memory holds it whole): {ms:.4f} ms as issued, "
+          f"{held:.4f} held = {held * 1e6 / PROBE_NG:.2f} ns a row; at the "
+          f"{PROBE_TV}-row table {e['ns_per_row']:.2f} (panels x slices "
+          f"{dp.take_axis0_geometry(PROBE_TV, dev)}) [{card}]")
+
+    for name, e in entries.items():
+        b_bytes = e.pop("nbytes") / HBM_BYTES_PER_S * 1e3
+        b_ops = e.pop("ops") / TC_INT8_OPS_PER_S * 1e3
+        e["bound_ms"], e["bound_by"] = ((b_bytes, "bytes") if b_bytes >= b_ops
+                                        else (b_ops, "operations"))
+    del tab_w, tab_4
+    torch.cuda.empty_cache()
+    print(f"probes phase: {time.perf_counter() - t_phase:.1f} s wall "
+          f"[{card}]")
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--n-kmers", type=int, default=20_000_000)
+    ap.add_argument("--host-route-inline", action="store_true",
+                    help="join phase 3d's host-route check before phase 3i "
+                         "rather than after 3j, so that no phase runs "
+                         "beside it (to time 3i, 3g and 3j without it)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -3757,6 +4096,7 @@ def main() -> int:
                                                kmer_pack, probe)
     from signature_kmers_tpu_torch.table.wide_table import WideKmerTable
     from signature_kmers_tpu_torch.runtime import host
+    from signature_kmers_tpu_torch.utils import profiling
 
     # ---- phase 1: environment and kernel build ---------------------------
     card = card_line()
@@ -4314,6 +4654,9 @@ def main() -> int:
     print(f"device memory held after phase 2 (the distance path's table "
           f"and test rows): {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
 
+    # ---- phase 2p: the six Pallas probes of pallas_dma_bench.py ----------
+    probes = probes_phase(card, args.seed + 20)
+
     # ---- phase 3: the main path at full size -----------------------------
     caller = FunctionCaller(table, function_index, cfg,
                             DeviceConfig(call_batch=8192), device="cuda")
@@ -4382,6 +4725,39 @@ def main() -> int:
     if expand_calls[0]:
         fail(f"the main path called the plain expand_rows16 "
              f"{expand_calls[0]} times")
+
+    # ---- the device's busy share of one call, from a torch.profiler trace
+    trace_dir = Path(tempfile.mkdtemp(prefix="skt_trace_"))
+    try:
+        t0 = time.perf_counter()
+        with profiling.trace(str(trace_dir)):
+            with torch.profiler.record_function("call_batch"):
+                caller.call_batch(sets["uniform300"])
+            torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+        busy = profiling.device_busy_share(
+            next(trace_dir.glob("trace_*.json")), "call_batch")
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    busy["traced_call_s"] = traced_s
+    # the profiler's CPU tracing stretches the window; the device's work
+    # over the fastest untraced call of the same set is the other reading
+    busy["untraced_call_us"] = (len(outputs["uniform300"]) * 1e6
+                                / max(p3_rates["uniform300"]))
+    busy["busy_share_of_untraced_call"] = (busy["busy_us"]
+                                           / busy["untraced_call_us"])
+    if busy["events"]:
+        print(f"traced uniform300 call: device busy {busy['busy_us']:.0f} "
+              f"of {busy['window_us']:.0f} us = {busy['busy_share']:.4f} "
+              f"({busy['events']} kernel and copy events; idle "
+              f"{1 - busy['busy_share']:.4f}); over the fastest untraced "
+              f"call's {busy['untraced_call_us']:.0f} us "
+              f"{busy['busy_share_of_untraced_call']:.4f}; the call with the "
+              f"profiler on {traced_s:.4f} s [{card}]")
+    else:
+        print("traced uniform300 call: the trace holds no device events; "
+              "the busy share is not measured")
+    print(json.dumps({"trace": busy}))
 
     # ---- check the main path against the exact host route ----------------
     for name, batch in sets.items():
@@ -4615,9 +4991,9 @@ def main() -> int:
               f"genomes ({BUILD_LOWER} in lower case), written in "
               f"{time.perf_counter() - t0:.1f} s")
         t_phase = time.perf_counter()
-        build_launches, one = build_phase(card, report, differences,
-                                          plain_of, all_wrappers, work,
-                                          corpus)
+        build_launches, one = build_phase(
+            card, report, differences, plain_of, all_wrappers, work, corpus,
+            host_route_beside=not args.host_route_inline)
         print(f"build phase: {time.perf_counter() - t_phase:.1f} s wall "
               f"[{card}]")
         gc.collect()
@@ -4630,6 +5006,7 @@ def main() -> int:
         # phase 3j's build: 3d's concatenated corpus and kept set
         keep_3j = dict(seqs=one["seqs"], kept_digest=kernel_cases.kept_digest(
             one["kept"], one["stats"]))
+        host_check = one["host_check"]
         del one
         print(json.dumps({"mesh_build": mesh_build}))
         gc.collect()
@@ -4647,6 +5024,10 @@ def main() -> int:
         del keep_3j
         print(json.dumps({"mp": {k: v for k, v in mp.items()
                                  if k != "launches"}}))
+        # ---- phase 3d's host route, run beside 3i, 3g and 3j (joined in
+        # 3d with --host-route-inline) -----------------------------------
+        if host_check is not None:
+            host_check.finish(card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4728,7 +5109,10 @@ def main() -> int:
                    "uniform300 + 16384 mixed60_600 rows, 2 timed calls "
                    f"each; aux: {N_KEEP_HITS} keep-hits rows",
         probe_table="mesh linear path (phase 3h): probe_sharded of "
-                    "2,500,000 windows on a dp x tp mesh, one call")
+                    "2,500,000 windows on a dp x tp mesh, one call",
+        **dict.fromkeys(probes, "probes path (phase 2p): one call at each "
+                        "parameter that benchmarks/pallas_dma_bench.py "
+                        "sweeps"))
     kernels = []
     for name, (src, replaces) in sources.items():
         r = report[name]
@@ -4763,6 +5147,23 @@ def main() -> int:
                             mesh_launches=mesh_launches.get(name, {}),
                             mp_launches=mp_launches.get(name, {}),
                             mismatches=r["mismatches"], **extra))
+    probe_lines = dict(sweep_bw=107, row_dma_gather=172,
+                       block_dma_gather=227, v_take_axis0=302,
+                       v_onehot_mxu=322, v_take_lanes=354)
+    for name, r in probes.items():
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="signature_kmers_tpu_torch/csrc/dma_probes.cu",
+            replaces=f"benchmarks/pallas_dma_bench.py:{probe_lines[name]}",
+            launches=r["launches"], launches_of=launches_of[name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r.get("library_ms"), mismatches=r["mismatches"],
+            **{k: r[k] for k in ("held_ms", "curve", "panel", "library",
+                                 "library_held_ms", "ns_per_row",
+                                 "stream_yardstick_ms",
+                                 "stream_yardstick_gb_per_s", "checked")
+               if k in r}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -96,6 +96,19 @@ ENTRY_POINTS = {
     "build_select_runs": (
         "build_select", "skt_build_select_runs",
         [PTR, PTR, PTR, PTR, LONG, INT, FLOAT, PTR, PTR, PTR, LONG]),
+    # the Pallas probes of benchmarks/pallas_dma_bench.py (ops/dma_probes)
+    "sweep_bw": ("dma_probes", "skt_sweep_bw",
+                 [PTR, LONG, INT, INT, INT, PTR]),
+    "row_dma_gather": ("dma_probes", "skt_row_dma_gather",
+                       [PTR, LONG, PTR, LONG, INT, PTR]),
+    "block_dma_gather": ("dma_probes", "skt_block_dma_gather",
+                         [PTR, LONG, PTR, LONG, INT, INT, INT, PTR]),
+    "v_take_axis0": ("dma_probes", "skt_v_take_axis0",
+                     [PTR, LONG, PTR, LONG, INT, INT, PTR]),
+    "v_onehot_mxu": ("dma_probes", "skt_v_onehot_mxu",
+                     [PTR, INT, PTR, LONG, PTR]),
+    "v_take_lanes": ("dma_probes", "skt_v_take_lanes",
+                     [PTR, PTR, LONG, PTR]),
 }
 
 

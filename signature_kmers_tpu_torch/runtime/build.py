@@ -24,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 CUDA_SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 CUDA_KERNELS = ("pack_call_windows", "probe_wide", "automaton",
                 "build_extract", "build_select", "probe_bucket", "probe_cmph",
-                "probe_table")
+                "probe_table", "dma_probes")
 # -fmad=false: the automaton's length window and the build's 80% rule must
 # round like the plain float32 versions (no fused multiply-add); no
 # fast-math anywhere

@@ -1148,6 +1148,70 @@ long skt_build_wide(const uint32_t *hi, const uint32_t *lo,
     return nl;
 }
 
+// The entries of a wide tagged store (table/wide_table.py
+// _occupied_tagged, the numpy spec): each occupied slot's 48-bit key from
+// the Feistel inverse of its (bucket, tag) (ops/hashing.perm48_inv) and
+// its three aux words, in bucket-major, slot order (np.nonzero's).
+// key[i] = hi << 24 | lo; vals (n, 3) = the entries' (v0, v1, v2) rows.
+// Threads own disjoint bucket ranges: a counting pass, then each writes
+// its entries from its prefix.  Returns the entry count; writes nothing
+// when it is above cap.
+long skt_occupied_tagged(const uint32_t *packed, const uint32_t *aux,
+                         long nb, int S, uint32_t salt, int bits, long cap,
+                         int64_t *key, uint32_t *vals) {
+    const int T = skt_threads();
+    const uint32_t M24 = 0xFFFFFFu;
+    static const uint32_t RC[3] = {0x9E3779B9u, 0x85EBCA6Bu, 0xC2B2AE35u};
+    std::vector<long> count((size_t)T + 1, 0);
+    auto run = [&](int t, bool fill) {
+        const long b0 = nb * t / T, b1 = nb * (t + 1) / T;
+        long at = fill ? count[(size_t)t] : 0, c = 0;
+        for (long b = b0; b < b1; b++) {
+            const uint32_t *row = packed + b * 2 * S;
+            for (int s = 0; s < S; s++) {
+                const uint32_t tag = row[s];
+                if (tag == 0xFFFFFFFFu) continue;
+                if (!fill) {
+                    c++;
+                    continue;
+                }
+                const uint32_t bucket = (uint32_t)b;
+                uint32_t L, R;
+                if (bits <= 24) {
+                    L = tag >> (24 - bits);
+                    R = ((tag & ((1u << (24 - bits)) - 1u)) << bits) | bucket;
+                } else {
+                    L = (tag << (bits - 24)) | (bucket >> 24);
+                    R = bucket & M24;
+                }
+                for (int r = 2; r >= 0; r--) {
+                    const uint32_t F = fmix32(L ^ (salt ^ RC[r])) & M24;
+                    const uint32_t nL = R ^ F;
+                    R = L;
+                    L = nL;
+                }
+                const uint32_t *arow = aux + b * 3 * S;
+                key[at] = ((int64_t)L << 24) | (int64_t)R;
+                vals[3 * at] = arow[s];
+                vals[3 * at + 1] = arow[S + s];
+                vals[3 * at + 2] = arow[2 * S + s];
+                at++;
+            }
+        }
+        if (!fill) count[(size_t)t + 1] = c;
+    };
+    auto all = [&](bool fill) {
+        std::vector<std::thread> ts;
+        for (int t = 0; t < T; t++) ts.emplace_back(run, t, fill);
+        for (auto &th : ts) th.join();
+    };
+    all(false);
+    for (int t = 0; t < T; t++) count[(size_t)t + 1] += count[(size_t)t];
+    const long total = count[(size_t)T];
+    if (total <= cap) all(true);
+    return total;
+}
+
 // 16-code-aligned 6-bit row packing for the H2D code transfer (the
 // device expands with ROW gathers; ops/kmer_pack.pack_u6_rows_host is
 // the numpy spec this must match byte for byte).  packed is (R, 3)

@@ -3,10 +3,12 @@
 Compiled with g++ -O3 at first use into the checkout's git-ignored
 ``build/torch_kernels/`` directory (the same directory the CUDA kernels
 build into).  Exposes only what the port uses: the FASTA scan, the 6-bit
-row packer, wide-table and cuckoo placement, native best-call scoring,
-the final.kmers writer, and the BDZ build, search and Jenkins hash of
-reference CMPH stores.  Every entry point has a numpy/Python spec beside
-its caller (io/fasta.py, ops/kmer_pack.py, table/wide_table.py,
+row packer, wide-table and cuckoo placement, the wide table's entries,
+native best-call scoring, the final.kmers writer, the BDZ build, search
+and Jenkins hash of reference CMPH stores, and the reference-style CPU
+calling passes that a benchmark's ``vs_baseline`` divides by.  Every
+entry point but the last has a numpy/Python spec beside its caller
+(io/fasta.py, ops/kmer_pack.py, table/wide_table.py,
 table/bucket_table.py, golden/call.py, io/formats.py, interop/cmph.py,
 interop/hashes.py), so the package works without a host toolchain, only
 slower.
@@ -24,6 +26,7 @@ from . import build
 _SRC = Path(__file__).parent / "csrc" / "skt_runtime.cpp"
 _LIB = None
 _TRIED = False
+load_error = ""  # why the library did not load, when it did not
 
 _c_long = ctypes.c_long
 _c_int = ctypes.c_int
@@ -31,7 +34,7 @@ _c_ptr = ctypes.c_void_p
 
 
 def _load():
-    global _LIB, _TRIED
+    global _LIB, _TRIED, load_error
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
@@ -41,7 +44,8 @@ def _load():
             _SRC, ["g++", "-O3", "-shared", "-fPIC", "-pthread",
                    "-std=c++17"])
         lib = ctypes.CDLL(str(so))
-    except (OSError, RuntimeError):
+    except (OSError, RuntimeError) as e:
+        load_error = f"{type(e).__name__}: {e}"
         return None
     lib.skt_scan_fasta.restype = _c_long
     lib.skt_scan_fasta.argtypes = [ctypes.c_char_p, _c_long] + [_c_ptr] * 6
@@ -79,6 +83,22 @@ def _load():
     lib.skt_parse_final_kmers.restype = _c_long
     lib.skt_parse_final_kmers.argtypes = [
         _c_ptr, _c_long, _c_ptr, _c_long] + [_c_ptr] * 4
+    lib.skt_occupied_tagged.restype = _c_long
+    lib.skt_occupied_tagged.argtypes = [
+        _c_ptr, _c_ptr, _c_long, _c_int, ctypes.c_uint32, _c_int, _c_long,
+        _c_ptr, _c_ptr]
+    lib.skt_cpu_baseline.restype = _c_long
+    lib.skt_cpu_baseline.argtypes = [
+        _c_ptr, _c_ptr, _c_long, _c_ptr, _c_long, ctypes.c_uint32, _c_int,
+        _c_int, _c_int, _c_int, ctypes.c_double, ctypes.c_double]
+    lib.skt_cpu_baseline_bdz.restype = _c_long
+    lib.skt_cpu_baseline_bdz.argtypes = [
+        _c_ptr, _c_ptr, _c_long, _c_ptr, ctypes.c_uint32, ctypes.c_uint32,
+        _c_ptr, _c_ptr, _c_int, _c_ptr, _c_long,
+        _c_int, _c_int, _c_int, ctypes.c_double, ctypes.c_double]
+    lib.skt_cpu_baseline_bdz_mt.restype = _c_long
+    lib.skt_cpu_baseline_bdz_mt.argtypes = (
+        lib.skt_cpu_baseline_bdz.argtypes + [_c_int])
     _LIB = lib
     return _LIB
 
@@ -150,6 +170,28 @@ def build_wide_place(hi, lo, v0, v1, v2, bits: int, salt: int, slots: int):
     if nl < 0:
         raise ValueError("duplicate k-mer keys in table build input")
     return packed, aux, leftover[:nl].copy()
+
+
+def occupied_tagged(stores, n: int):
+    """The n entries of wide tagged stores, each a (packed, aux, salt,
+    bits) host image, one store after the other, each in bucket-major,
+    slot order (the order of table/wide_table.py's numpy spec) -> (key
+    int64 = hi << 24 | lo, vals (n, 3) uint32 rows (v0, v1, v2)).  Raises
+    ValueError when the stores hold more than n."""
+    lib = _load()
+    key = np.empty(n, np.int64)
+    vals = np.empty((n, 3), np.uint32)
+    at = 0
+    for packed, aux, salt, bits in stores:
+        packed = np.ascontiguousarray(packed, dtype=np.uint32)
+        aux = np.ascontiguousarray(aux, dtype=np.uint32)
+        at += lib.skt_occupied_tagged(
+            _ptr(packed), _ptr(aux), packed.shape[0], packed.shape[1] // 2,
+            np.uint32(salt), bits, n - at, _ptr(key[at:]), _ptr(vals[at:]))
+        if at > n:
+            raise ValueError(f"the tagged stores hold more than the {n} "
+                             f"entries expected")
+    return key[:at], vals[:at]
 
 
 def run_best_call(call_fI, call_count, call_off, is_multipart, lex_rank,
@@ -257,6 +299,52 @@ def build_cuckoo(hi, lo, v0, v1, v2, n_buckets: int, salt: int,
     if rc != 0:
         return None
     return tuple(out)
+
+
+def cpu_baseline_call(codes, seq_off, table, min_hits: int, max_gap: int,
+                      k: int, mad_floor: float, len_window: float) -> int:
+    """Single-thread reference-style CPU calling pass (bench baseline).
+
+    One probe per residue + the sequential automaton; returns total calls.
+    `table` is a BucketKmerTable."""
+    lib = _load()
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    seq_off = np.ascontiguousarray(seq_off, dtype=np.int64)
+    packed = np.ascontiguousarray(table.packed, dtype=np.uint32)
+    return lib.skt_cpu_baseline(
+        _ptr(codes), _ptr(seq_off), seq_off.shape[0] - 1,
+        _ptr(packed), table.n_buckets, np.uint32(table.salt), table.slots,
+        min_hits, max_gap, k, mad_floor, len_window)
+
+
+def cpu_baseline_call_bdz(codes, seq_off, mph, values, min_hits: int,
+                          max_gap: int, k: int, mad_floor: float,
+                          len_window: float, n_threads: int = 1) -> int:
+    """Single-thread CPU pass with the reference's AUTHENTIC read path:
+    CMPH BDZ search (jenkins + 3 g-array reads + rank byte scan) + one
+    unverified 10-byte record read per window (cmph_kmer.h:139-147),
+    feeding the same sequential automaton.  `mph` is an interop BdzMph;
+    `values` the (m,) STORED_KMER_DTYPE record array.  Returns calls.
+    n_threads > 1 partitions sequences across threads like the
+    reference's --n-threads TBB loop (kmers-call-functions.cc:91)."""
+    from ..core import alphabet
+
+    lib = _load()
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    seq_off = np.ascontiguousarray(seq_off, dtype=np.int64)
+    c2b = np.ascontiguousarray(alphabet.CODE_TO_BYTE, dtype=np.uint8)
+    g = np.ascontiguousarray(mph.g, dtype=np.uint8)
+    rt = np.ascontiguousarray(mph.ranktable, dtype=np.uint32)
+    vals = np.ascontiguousarray(values)
+    if vals.dtype.itemsize != 10:
+        raise ValueError("values must be 10-byte StoredKmerData records")
+    args = (_ptr(codes), _ptr(seq_off), seq_off.shape[0] - 1, _ptr(c2b),
+            np.uint32(mph.seed), np.uint32(mph.r), _ptr(g), _ptr(rt),
+            int(mph.b), _ptr(vals), int(mph.m),
+            min_hits, max_gap, k, mad_floor, len_window)
+    if n_threads > 1:
+        return lib.skt_cpu_baseline_bdz_mt(*args, int(n_threads))
+    return lib.skt_cpu_baseline_bdz(*args)
 
 
 def jenkins3_k8(keys, seed: int):

@@ -457,18 +457,27 @@ class WideKmerTable:
 
     def occupied(self):
         """(hi, lo, v0, v1, v2) of stored entries, sorted by key."""
-        hi, lo, v0, v1, v2 = _occupied_tagged(self.packed, self.aux,
-                                              self.salt, self.bits)
+        stores = [(self.packed, self.aux, self.salt, self.bits)]
         if self.ov_items:
-            oh, ol, o0, o1, o2 = _occupied_tagged(self.ov_packed, self.ov_aux,
-                                                  self.ov_salt, self.ov_bits)
-            hi = np.concatenate([hi, oh])
-            lo = np.concatenate([lo, ol])
-            v0 = np.concatenate([v0, o0])
-            v1 = np.concatenate([v1, o1])
-            v2 = np.concatenate([v2, o2])
-        order = key_order(hi, lo)
-        return hi[order], lo[order], v0[order], v1[order], v2[order]
+            stores.append((self.ov_packed, self.ov_aux, self.ov_salt,
+                           self.ov_bits))
+        host = _native_host()
+        if host is None:
+            hi, lo, v0, v1, v2 = (np.concatenate(c) for c in zip(
+                *(_occupied_tagged(*store) for store in stores)))
+            order = key_order(hi, lo)
+            return hi[order], lo[order], v0[order], v1[order], v2[order]
+        # one native pass over the slots, split over the host's threads;
+        # the keys are distinct (each is stored once), so torch's threaded
+        # unstable sort orders them as the stable one does, and hi, lo come
+        # from the sorted keys themselves
+        key, vals = host.occupied_tagged(stores, self.n_items)
+        key, order = torch.sort(torch.from_numpy(key))
+        vals = torch.from_numpy(vals.view(np.int32)).index_select(0, order)
+        words = (key >> 24, key & 0xFFFFFF)
+        hi, lo = (w.to(torch.int32).numpy().view(np.uint32) for w in words)
+        v0, v1, v2 = vals.t().contiguous().numpy().view(np.uint32)
+        return hi, lo, v0, v1, v2
 
 
 def _rows_on(device, rows, words: int, make, *more, chunk: int = 1 << 21):

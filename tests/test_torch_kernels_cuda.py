@@ -15,7 +15,8 @@ import torch
 from signature_kmers_tpu_torch.core.config import CallConfig
 from signature_kmers_tpu_torch import testing as kernel_cases
 from signature_kmers_tpu_torch.ops import (automaton, build_extract,
-                                           build_select, kmer_pack, probe)
+                                           build_select, dma_probes,
+                                           kmer_pack, probe)
 from signature_kmers_tpu_torch.table import wide_table
 from signature_kmers_tpu_torch.table.wide_table import (
     WideKmerTable, WideTableConfig, compact_config)
@@ -536,6 +537,133 @@ def test_probe_table(dev, case):
             keys, vals, *q, t.max_probes)[0].sum().item()
     with pytest.raises(ValueError, match="power-of-two"):
         probe.probe_table(keys[:-1], vals[:-1], *q, max_probes)
+
+
+def _probe_holds(name, *args, kernel_kw=None, **kw):
+    """One launch of a dma_probes wrapper (with kernel_kw, the arguments
+    of its kernel alone), bit for bit equal to its plain version on the
+    same card tensors."""
+    fn, plain = dma_probes.PROBES[name]
+    before = fn.launches
+    got = fn(*args, **kw, **(kernel_kw or {}))
+    assert fn.launches == before + 1
+    want = plain(*args, **kw)
+    assert got.shape == want.shape and torch.equal(got, want), name
+    return want
+
+
+def _ints(gen, lo, hi, shape, dev):
+    return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32,
+                         device="cpu").to(dev)
+
+
+@pytest.fixture(scope="module")
+def wide_rows(dev):
+    # 2^16 + 100 rows: chunks of 1024 and 4096 leave a partial one
+    return dma_probes.make_table_w((1 << 16) + 100, dev)
+
+
+def test_sweep_bw(dev, wide_rows):
+    """Every chunk size, copy size and odd and even rep count; the XOR of
+    the chunks' first words, 0 after an even count."""
+    for chunk, copy in ((1024, 128), (4096, 128), (1024, 32), (128, 128)):
+        for reps in (1, 2, 3):
+            want = _probe_holds("sweep_bw", wide_rows, chunk, reps,
+                                kernel_kw=dict(copy_rows=copy))
+            assert (int(want) == 0) == (reps % 2 == 0)
+    with pytest.raises(ValueError, match="multiple of copy_rows"):
+        dma_probes.sweep_bw(wide_rows, 1000, 1, copy_rows=128)
+
+
+@pytest.mark.parametrize("q", [1, 4, 16, 64, 128])
+def test_row_dma_gather(dev, q):
+    tab = dma_probes.make_table_4(1 << 20, dev)
+    gen = torch.Generator().manual_seed(q)
+    idx = _ints(gen, 0, 1 << 20, (8192,), dev)
+    idx[:2] = torch.tensor([0, (1 << 20) - 1], dtype=torch.int32)
+    _probe_holds("row_dma_gather", tab, idx, q)
+    _probe_holds("row_dma_gather", tab, idx[:q // 2 + 1], q)
+    with pytest.raises(ValueError, match="q must be one of"):
+        dma_probes.row_dma_gather(tab, idx, q * 3)
+
+
+@pytest.mark.parametrize("rpd", [1, 8, 64, 512, 700])
+def test_block_dma_gather(dev, wide_rows, rpd):
+    """The JAX script's rows per copy and one that splits into pieces with
+    a short last one; starts at both ends of the table."""
+    R = wide_rows.shape[0]
+    gen = torch.Generator().manual_seed(rpd)
+    n = 8192 if rpd <= 64 else 2048
+    starts = _ints(gen, 0, R - rpd + 1, (n,), dev)
+    starts[:2] = torch.tensor([0, R - rpd], dtype=torch.int32)
+    _probe_holds("block_dma_gather", wide_rows, starts, rpd, n)
+    _probe_holds("block_dma_gather", wide_rows, starts, rpd, n - 3, q=4)
+
+
+@pytest.mark.parametrize("rows", [8192, 384, 1000, 5])
+def test_v_take_axis0(dev, rows):
+    """The JAX shape (8192-row table, 4096 indices), one panel, panels
+    with a short last one, a table of five rows."""
+    tab = dma_probes.make_table_w(rows, dev)
+    gen = torch.Generator().manual_seed(rows)
+    for n in (4096, 77):
+        idx = _ints(gen, 0, rows, (n, 1), dev)
+        idx[:2, 0] = torch.tensor([0, rows - 1], dtype=torch.int32)
+        _probe_holds("v_take_axis0", tab, idx)
+
+
+@pytest.mark.parametrize("k_rows", [512, 32])
+def test_v_onehot_mxu(dev, k_rows):
+    """8-bit words (the JAX kernel's tab[:512] & 0xFF, and all 256 values),
+    row counts that fill the last warp's tile and that do not."""
+    small = dma_probes.make_table_w(k_rows, dev) & 0xFF
+    small[0] = torch.arange(128, device=dev, dtype=torch.int32) + 128
+    gen = torch.Generator().manual_seed(k_rows)
+    for n in (4096, 4099, 5):
+        idx = _ints(gen, 0, k_rows, (n, 1), dev)
+        idx[:2, 0] = torch.tensor([0, k_rows - 1], dtype=torch.int32)
+        _probe_holds("v_onehot_mxu", small, idx)
+
+
+@pytest.mark.parametrize("rows", [4096, 77])
+def test_v_take_lanes(dev, rows):
+    tab = dma_probes.make_table_w(rows, dev)
+    gen = torch.Generator().manual_seed(rows)
+    idx = _ints(gen, 0, 128, (rows, 128), dev)
+    idx[0] = torch.arange(128, dtype=torch.int32).flip(0)
+    _probe_holds("v_take_lanes", idx, tab)
+
+
+def test_probes_refuse_out_of_range(dev, wide_rows):
+    """An index out of range, a start past the last whole block or a word
+    above 8 bits raises ValueError naming the argument before any launch,
+    and the card's context stays usable after it."""
+    tab4 = dma_probes.make_table_4(64, dev)
+    tab8 = wide_rows[:8]
+    small = dma_probes.make_table_w(32, dev) & 0xFF
+    idx = torch.zeros(8, dtype=torch.int32, device=dev)
+    col = torch.zeros((8, 1), dtype=torch.int32, device=dev)
+    lanes = torch.zeros((8, 128), dtype=torch.int32, device=dev)
+    last = wide_rows.shape[0] - 8
+    bad = [
+        (lambda: dma_probes.row_dma_gather(tab4, idx + 64, 4), "idx"),
+        (lambda: dma_probes.row_dma_gather(tab4, idx - 1, 4), "idx"),
+        (lambda: dma_probes.block_dma_gather(wide_rows, idx + last + 1, 8, 8),
+         "starts"),
+        (lambda: dma_probes.v_take_axis0(tab8, col + 8), "idx"),
+        (lambda: dma_probes.v_onehot_mxu(small, col + 32), "idx"),
+        (lambda: dma_probes.v_onehot_mxu(small | 0x100, col), "small"),
+        (lambda: dma_probes.v_take_lanes(lanes + 128, tab8), "idx"),
+    ]
+    before = {n: fn.launches for n, (fn, _) in dma_probes.PROBES.items()}
+    for call, name in bad:
+        with pytest.raises(ValueError, match=f"^{name}"):
+            call()
+    assert before == {n: fn.launches
+                      for n, (fn, _) in dma_probes.PROBES.items()}
+    torch.cuda.synchronize()
+    _probe_holds("block_dma_gather", wide_rows, idx + last, 8, 8)
+    _probe_holds("v_take_axis0", tab8, col + 7)
 
 
 def test_nccl_world_of_one(dev):

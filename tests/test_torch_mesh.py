@@ -46,6 +46,7 @@ from signature_kmers_tpu_torch.parallel import parallel_caller as port_pc
 from signature_kmers_tpu_torch.parallel import sharded_table as port_st
 from signature_kmers_tpu_torch.service import server as torch_server
 from signature_kmers_tpu_torch.table import bucket_table_from_jax_arrays
+from tests.host_routes import require_native
 from tests.test_torch_service import _answer
 
 CPU8 = [torch.device("cpu")] * 8
@@ -76,6 +77,8 @@ def kd(fixture_dir, tmp_path_factory):
     """A data dir built by skt (--host-only: the same artifacts without an
     XLA compile), its query file, both packages' tables and meshes."""
     out = tmp_path_factory.mktemp("mesh_kd") / "kd"
+    # the cuckoo shards place on the native route in both packages
+    require_native()
     jax_cli(["build-signatures", "-D", str(fixture_dir / "Annotations"),
              "-F", str(fixture_dir / "Seqs"), "--kmer-data-dir", str(out),
              "--final-kmers", "final.kmers", "--no-recall", "--host-only"])

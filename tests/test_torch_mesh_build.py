@@ -34,6 +34,7 @@ from signature_kmers_tpu_torch.models.signature_builder import \
 from signature_kmers_tpu_torch.parallel import build_step
 from signature_kmers_tpu_torch.parallel import mesh as mesh_mod
 from signature_kmers_tpu_torch.stats import natural_breaks
+from tests.host_routes import require_native
 
 CPU8 = [torch.device("cpu")] * 8
 KEPT_FIELDS = ("hi", "lo", "avg_from_end", "function_index", "mean",
@@ -255,6 +256,8 @@ def cli_builds(fixture_dir, tmp_path_factory, jit_jax_build_step):
     devices replaced, as the JAX tests make 8 virtual ones).  ->
     {flags: {"jax"|"torch": (data dir, rc, stdout, warnings)}}."""
     root = tmp_path_factory.mktemp("mesh_build")
+    # the cuckoo set places on the native route in both packages
+    require_native()
     local = mesh_mod.local_devices
     mesh_mod.local_devices = lambda device_type="cuda": list(CPU8)
     out = {}

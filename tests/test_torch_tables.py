@@ -79,6 +79,7 @@ from signature_kmers_tpu_torch.table import (BucketKmerTable,
                                              cmph_table_from_jax_arrays)
 from signature_kmers_tpu_torch.table.kmer_table import KmerTable
 from signature_kmers_tpu_torch.table.wide_table import table_from_jax_arrays
+from tests.host_routes import pinned, require_native
 
 CPU = torch.device("cpu")
 
@@ -127,7 +128,8 @@ def stores(fixture_dir, tmp_path_factory):
     # skt's host route (--host-only) writes the device build's artifacts
     # (tests/test_host_only.py) without compiling the XLA selection; the
     # port builds through its device path (argv) in
-    # test_cuckoo_build_matches_jax
+    # test_cuckoo_build_matches_jax, on the same placement route
+    require_native()
     rc, _ = _cli(jax_cli, argv + ["--kmer-data-dir", str(cuckoo),
                                   "--host-only"])
     assert rc == 0
@@ -487,11 +489,19 @@ def test_open_table_matches_jax(stores, store):
 
 # -- (e) build-signatures --table-layout cuckoo --------------------------------
 
-def test_cuckoo_build_matches_jax(stores):
+def _cuckoo_build_matches_jax(stores, route):
+    """The port's build against skt's, both placing the cuckoo keys on
+    one route (tests/host_routes.py): the native libraries, or numpy."""
     want = stores["dirs"]["cuckoo"]
-    got = stores["root"] / "torch-cuckoo"
-    rc, _ = _cli(torch_cli, stores["argv"] + ["--kmer-data-dir", str(got),
-                                               "--device", "cpu"])
+    got = stores["root"] / f"torch-cuckoo-{route}"
+    with pinned(route):
+        if route == "numpy":
+            want = stores["root"] / "cuckoo-numpy"
+            rc, _ = _cli(jax_cli, stores["argv"] + [
+                "--kmer-data-dir", str(want), "--host-only"])
+            assert rc == 0
+        rc, _ = _cli(torch_cli, stores["argv"] + [
+            "--kmer-data-dir", str(got), "--device", "cpu"])
     assert rc == 0
     files = sorted(p.relative_to(want) for p in want.rglob("*")
                    if p.is_file())
@@ -506,6 +516,14 @@ def test_cuckoo_build_matches_jax(stores):
                 np.testing.assert_array_equal(g[k], w[k])
         else:
             assert (got / f).read_bytes() == (want / f).read_bytes(), f
+
+
+def test_cuckoo_build_matches_jax(stores):
+    _cuckoo_build_matches_jax(stores, "native")
+
+
+def test_cuckoo_build_numpy_route_matches_jax(stores):
+    _cuckoo_build_matches_jax(stores, "numpy")
 
 
 # -- (f) the CLI verbs, byte for byte -------------------------------------------
@@ -627,12 +645,37 @@ def test_sharded_wide_matches_jax(wide_tables, name, tp):
     assert sum(got.shard(s).n_items for s in range(tp)) == pt.n_items
 
 
-@pytest.mark.parametrize("tp", [1, 2, 16])
-def test_sharded_bucket_matches_jax(wide_tables, tp):
-    jb = JaxBucket.build(*wide_tables["30k"][0].occupied())
-    pb = bucket_table_from_jax_arrays(jb.packed, jb.aux, jb.salt, jb.n_items)
-    want = jax_pc.ShardedBucketTable.from_table(jb, tp)
-    got = port_pc.ShardedBucketTable.from_table(pb, tp)
+@pytest.mark.parametrize("route", ["native", "numpy"])
+@pytest.mark.parametrize("name", ["30k", "120k"])
+def test_occupied_matches_jax(wide_tables, name, route):
+    """WideKmerTable.occupied on each route (the native pass and the numpy
+    spec) against the JAX package's: main store and leaf, sorted by key."""
+    from signature_kmers_tpu_torch.runtime import host
+
+    jt, pt = wide_tables[name]
+    want = jt.occupied()
+    with pinned(route):
+        got = pt.occupied()
+        if route == "native":
+            # outputs too short for the entries are refused, not overrun
+            stores = [(pt.packed, pt.aux, pt.salt, pt.bits),
+                      (pt.ov_packed, pt.ov_aux, pt.ov_salt, pt.ov_bits)]
+            for n in (pt.n_items - 1, pt.n_items - pt.ov_items - 1):
+                with pytest.raises(ValueError, match="more than"):
+                    host.occupied_tagged(stores, n)
+    assert pt.ov_items > 0
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+def _sharded_bucket_matches_jax(wide_tables, tp, route):
+    with pinned(route):
+        jb = JaxBucket.build(*wide_tables["30k"][0].occupied())
+        pb = bucket_table_from_jax_arrays(jb.packed, jb.aux, jb.salt,
+                                          jb.n_items)
+        want = jax_pc.ShardedBucketTable.from_table(jb, tp)
+        got = port_pc.ShardedBucketTable.from_table(pb, tp)
     for k in ("packed", "aux", "salts", "n_items"):
         np.testing.assert_array_equal(getattr(got, k), getattr(want, k),
                                       err_msg=k)
@@ -640,6 +683,16 @@ def test_sharded_bucket_matches_jax(wide_tables, tp):
     hits = sum(got.shard(s).lookup_np(hi, lo)[0].astype(int)
                for s in range(tp))
     np.testing.assert_array_equal(hits, 1)
+
+
+@pytest.mark.parametrize("tp", [1, 2, 16])
+def test_sharded_bucket_matches_jax(wide_tables, tp):
+    _sharded_bucket_matches_jax(wide_tables, tp, "native")
+
+
+@pytest.mark.parametrize("tp", [1, 2, 16])
+def test_sharded_bucket_numpy_route_matches_jax(wide_tables, tp):
+    _sharded_bucket_matches_jax(wide_tables, tp, "numpy")
 
 
 # one rank of test_sharded_tables_placed_by_rank: its own shard of each

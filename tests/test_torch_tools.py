@@ -25,6 +25,7 @@ from signature_kmers_tpu.table.bucket_table import BucketKmerTable
 from signature_kmers_tpu.table.kmer_table import KmerTable
 from signature_kmers_tpu_torch.cli.main import main as torch_cli
 from signature_kmers_tpu_torch.interop import nudb as torch_nudb
+from tests.host_routes import require_native
 
 CLIS = (("jax", jax_cli), ("port", torch_cli))
 LAYOUTS = ("wide", "cuckoo", "legacy")
@@ -183,6 +184,9 @@ TOOL_CASES = _tool_cases()
 def tool_runs(stores, tmp_path_factory):
     """{case: {"jax"|"port": (rc, stdout, stderr, files written)}}."""
     work = tmp_path_factory.mktemp("tools_work") / "w"
+    # relayout places cuckoo keys in each package: on the native route in
+    # both
+    require_native()
     runs = {}
     for case, (store, argv) in TOOL_CASES.items():
         runs[case] = {}
