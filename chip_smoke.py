@@ -59,13 +59,14 @@ Phases, in order; any failure exits non-zero:
    sweeps (sweep_bw at chunks of 1024 and 4096 rows, 8 reps and odd 1
    and 3, copies of 128 and 32 rows; row_dma_gather at q 4, 16, 64;
    block_dma_gather at rpd 1, 8, 64, 512; the three gathers, v_take_axis0
-   also on a 384-row table, one panel); the counts are read, and every
+   also on a 384-row table); the counts are read, and every
    output is held bit for bit to its plain version on the same card
    tensors.  Then each is timed as issued and held: sweep_bw's GB/s and
    share of 3.35 TB/s beside a torch sum over the same bytes, ns per row
    at each q, ns per copy and GB/s at each rpd (with the ring's depth),
    and ns per row of the gathers beside index_select (v_take_axis0,
-   v_onehot_mxu) and torch.gather (v_take_lanes).
+   v_onehot_mxu) and torch.gather (v_take_lanes), each gather's held time
+   beside the library call's and as a share of its bound.
 3. the main path at full size: a ~20M-key WideKmerTable, 16384 uniform
    300-aa queries with 3% point mutations and 16384 U[60, 600] queries,
    each called through FunctionCaller(device="cuda").call_batch with
@@ -3832,6 +3833,7 @@ PROBE_SWEEP_REPS = 8        # its sweeps per call (:153)
 PROBE_N_DMA = 8192          # its row copies (:167), and block copies at
 PROBE_N_BLOCK = 2048        # rpd <= 64, else 2048 (:266)
 PROBE_TV, PROBE_NG = 8192, 4096  # its on-chip table rows, gathered rows
+PROBE_SMALL_TV = 384        # v_take_axis0's second, small table
 TC_INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense
 
 
@@ -3862,8 +3864,8 @@ def probes_phase(card: str, seed: int) -> dict:
               for rpd in (1, 8, 64, 512)}
     tab_v = dp.make_table_w(PROBE_TV, dev)
     gidx = ints(PROBE_TV, (PROBE_NG, 1))
-    tab_panel = tab_v[:dp.PANEL_ROWS]
-    pidx = ints(dp.PANEL_ROWS, (PROBE_NG, 1))
+    tab_small = tab_v[:PROBE_SMALL_TV]
+    sidx = ints(PROBE_SMALL_TV, (PROBE_NG, 1))
     small = (tab_v[:512] & 0xFF).contiguous()
     midx = ints(512, (PROBE_NG, 1))
     tab_r = dp.make_table_w(PROBE_NG, dev)
@@ -3887,8 +3889,8 @@ def probes_phase(card: str, seed: int) -> dict:
         calls.append(("block_dma_gather", f"rpd {rpd}",
                       (tab_w, st, rpd, st.numel()), {}))
     calls += [("v_take_axis0", f"{PROBE_TV}-row table", (tab_v, gidx), {}),
-              ("v_take_axis0", f"{dp.PANEL_ROWS}-row table (one panel)",
-               (tab_panel, pidx), {}),
+              ("v_take_axis0", f"{PROBE_SMALL_TV}-row table",
+               (tab_small, sidx), {}),
               ("v_onehot_mxu", "512-row 8-bit table", (small, midx), {}),
               ("v_take_lanes", f"{PROBE_NG} x 128", (lidx, tab_r), {})]
     for fn, _ in dp.PROBES.values():
@@ -4029,22 +4031,26 @@ def probes_phase(card: str, seed: int) -> dict:
               f"{lib_ms:.4f} ms as issued, {lib_held:.4f} held = "
               f"{lib_held * 1e6 / PROBE_NG:.2f} ns a row [{card}]")
     e = entries["v_take_axis0"]
-    ms, held = timed(lambda: dp.v_take_axis0(tab_panel, pidx,
+    ms, held = timed(lambda: dp.v_take_axis0(tab_small, sidx,
                                              check_ranges=False), 20)
-    e["panel"] = dict(rows=dp.PANEL_ROWS, ms=ms, held_ms=held,
-                      ns_per_row=held * 1e6 / PROBE_NG,
-                      geometry=dp.take_axis0_geometry(dp.PANEL_ROWS, dev))
-    print(f"v_take_axis0 on the {dp.PANEL_ROWS}-row table (a block's "
-          f"shared memory holds it whole): {ms:.4f} ms as issued, "
-          f"{held:.4f} held = {held * 1e6 / PROBE_NG:.2f} ns a row; at the "
-          f"{PROBE_TV}-row table {e['ns_per_row']:.2f} (panels x slices "
-          f"{dp.take_axis0_geometry(PROBE_TV, dev)}) [{card}]")
+    e["small_table"] = dict(rows=PROBE_SMALL_TV, ms=ms, held_ms=held,
+                            ns_per_row=held * 1e6 / PROBE_NG)
+    print(f"v_take_axis0 on the {PROBE_SMALL_TV}-row table: {ms:.4f} ms as "
+          f"issued, {held:.4f} held = {held * 1e6 / PROBE_NG:.2f} ns a row; "
+          f"at the {PROBE_TV}-row table {e['ns_per_row']:.2f} [{card}]")
 
     for name, e in entries.items():
         b_bytes = e.pop("nbytes") / HBM_BYTES_PER_S * 1e3
         b_ops = e.pop("ops") / TC_INT8_OPS_PER_S * 1e3
         e["bound_ms"], e["bound_by"] = ((b_bytes, "bytes") if b_bytes >= b_ops
                                         else (b_ops, "operations"))
+    for name, *_ in gathers:
+        e = entries[name]
+        print(f"{name}: held {e['held_ms']:.4f} ms beside {e['library']}'s "
+              f"held {e['library_held_ms']:.4f} "
+              f"({e['library_held_ms'] / e['held_ms']:.2f}x); bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']}), "
+              f"{e['bound_ms'] / e['held_ms']:.1%} of it [{card}]")
     del tab_w, tab_4
     torch.cuda.empty_cache()
     print(f"probes phase: {time.perf_counter() - t_phase:.1f} s wall "
@@ -5159,7 +5165,8 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r.get("library_ms"), mismatches=r["mismatches"],
-            **{k: r[k] for k in ("held_ms", "curve", "panel", "library",
+            **{k: r[k] for k in ("held_ms", "curve", "small_table",
+                                 "library", "distinct_rows",
                                  "library_held_ms", "ns_per_row",
                                  "stream_yardstick_ms",
                                  "stream_yardstick_gb_per_s", "checked")

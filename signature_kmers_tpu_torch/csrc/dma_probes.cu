@@ -20,10 +20,13 @@
 // copy that starts a chunk (sweep), of every row (row gather) or of every
 // block (block gather), XORed into out[0] (zeroed by the caller).
 //
-// Bounds on the H100.  The copy probes are bound by bytes (the sweep by
-// the 3.35 TB/s of device memory; the gathers by the latency of a random
-// read, one issuing context as on the TPU's one core).  The three gathers
-// are bound by the bytes of their inputs and outputs.
+// Bounds on the H100.  The sweep is bound by the 3.35 TB/s of device
+// memory; the row and block gathers by the latency of a random read from
+// one issuing context, as on the TPU's one core (n / q x a round trip of
+// ~270 ns for the row gather), far above their bytes.  The three on-chip
+// gathers are bound by the bytes of their indices, their output and the
+// table rows they select; v_onehot_mxu's product is 0.27 us at the int8
+// tensor-core rate, under its bytes.
 // Design:
 // - the sweep's and the block gather's copies are 1-D bulk copies
 //   (cp.async.bulk, the TMA) from device memory into shared-memory slots,
@@ -47,20 +50,32 @@
 //   to 64 (PERF.md, section 6);
 // - the gathers read their indices or starts from shared memory, loaded
 //   before the ring starts (the TPU prefetches them into SMEM);
-// - v_take_axis0: the 4 MiB table does not fit a block's shared memory,
-//   so block (p, s) loads panel p (panel_rows rows, at most 384: 192 KiB)
-//   and writes the output rows of slice s whose index lies in it, a warp
-//   per row (a ballot over 32 indices, then 16 bytes a lane);
-// - v_onehot_mxu: mma.sync m16n8k32 u8 x u8 -> s32 on the tensor cores;
-//   the one-hot rows are made in registers from the indices, the 8-bit
-//   table is staged in shared memory transposed, four k in a word;
+// - v_take_axis0: the TPU holds the 4 MiB table in VMEM; on Hopper the
+//   on-chip memory that holds it is the 50 MB L2, not a block's 227 KB
+//   (staging it through shared memory in panels copies ~24 MiB to
+//   deliver 2 MiB: PERF.md, section 6).  So a warp copies a
+//   row straight from the table, a lane's 16 bytes, and one wave of warps
+//   covers the indices: the time is an index read and a row read from L2,
+//   not a copy of the table;
+// - v_onehot_mxu: all SMs busy and little to stage.  A block owns 256
+//   rows x a 16-column slice (128 blocks at 4096 rows, not 32), so it
+//   stages k_rows x 16 words (32 KiB at 512 rows, an eighth of the
+//   table) with four 16-byte loads a thread, packed to u8 in registers
+//   into a K-major layout whose stores and ldmatrix reads are free of
+//   bank conflicts.  The product runs on the tensor cores over every k
+//   (mma.sync m16n8k32 u8 x u8 -> s32); a row's one-hot A is one a-word,
+//   found once from its index, so a k-step costs two compares and four
+//   selects, one ldmatrix and two mma;
 // - v_take_lanes: a warp per row, the row's 128 words in registers (4 a
 //   lane); each output is fetched by __shfl_sync from lane idx >> 2, one
 //   shuffle per register, and word idx & 3 selected.
+// Shared-memory limits are raised once per kernel and device, and the SM
+// count read once per device, not on every call.
 // An index out of range, a start past the last whole block, or a table
 // word of v_onehot_mxu above 8 bits stops the kernel (__trap): the next
 // synchronisation raises.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -69,6 +84,38 @@ namespace {
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may use
 constexpr int RING_THREADS = 128;  // a ring block: it loads the indices
 constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int MAX_DEVICES = 64;
+
+using DeviceBits = std::atomic<unsigned long long>;
+
+// Raises a kernel's dynamic shared memory limit to SMEM_MAX once on each
+// device (bit d of `done`), not on every launch: the limit only allows,
+// and each launch still asks for what it uses.
+cudaError_t allow_smem_max(const void *kernel, DeviceBits &done) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    const unsigned long long bit = dev < MAX_DEVICES ? 1ull << dev : 0;
+    if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_MAX);
+    if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+    return e;
+}
+
+// the SMs of the current device, read once per device
+int sm_count() {
+    static std::atomic<int> counts[MAX_DEVICES];
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0) return 0;
+    if (dev < MAX_DEVICES && (n = counts[dev].load()) > 0) return n;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess)
+        return 0;
+    if (dev < MAX_DEVICES) counts[dev].store(n);
+    return n;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void *p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -198,8 +245,8 @@ __global__ void block_gather_kernel(Ring r, uint32_t *out) {
     run_ring(r, out);
 }
 
-int launch_ring(void (*kernel)(Ring, uint32_t *), const Ring &r, int grid,
-                void *out, cudaStream_t stream) {
+int launch_ring(void (*kernel)(Ring, uint32_t *), DeviceBits &smem_set,
+                const Ring &r, int grid, void *out, cudaStream_t stream) {
     const long slots_n = (long)r.issuers * r.depth;
     const long smem = bars_bytes((int)slots_n) + slots_n * r.piece_rows *
         r.row_bytes + (r.starts ? r.n_copies * 4 : 0);
@@ -208,8 +255,7 @@ int launch_ring(void (*kernel)(Ring, uint32_t *), const Ring &r, int grid,
         (r.piece_rows * (long)r.row_bytes) % 16)
         return (int)cudaErrorInvalidValue;
     if (r.n_copies <= 0) return (int)cudaGetLastError();
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e = allow_smem_max((const void *)kernel, smem_set);
     if (e != cudaSuccess) return (int)e;
     kernel<<<grid, RING_THREADS, smem, stream>>>(r, (uint32_t *)out);
     return (int)cudaGetLastError();
@@ -273,9 +319,9 @@ int launch_row_ring(const void *tab, long rows, const void *idx, long n,
                     int lanes, void *out, cudaStream_t stream) {
     const long smem = G * 32 * 16L + n * 4;
     if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaFuncSetAttribute(
-        row_ring_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    static DeviceBits smem_set;
+    cudaError_t e = allow_smem_max((const void *)row_ring_kernel<G>,
+                                   smem_set);
     if (e != cudaSuccess) return (int)e;
     row_ring_kernel<G><<<1, RING_THREADS, smem, stream>>>(
         (const uint4 *)tab, rows, (const int *)idx, n, lanes,
@@ -283,77 +329,98 @@ int launch_row_ring(const void *tab, long rows, const void *idx, long n,
     return (int)cudaGetLastError();
 }
 
-// ---- v_take_axis0: row gather from a panel in shared memory ----------------
+// ---- v_take_axis0: a direct row gather through L2 -------------------------
 
 constexpr int TAKE_THREADS = 256;
+constexpr int TAKE_WARPS = TAKE_THREADS / 32;
 
+// Warp w copies output row w, then strides by the grid's warps: every
+// lane reads the row's index (one broadcast load), checks it, and moves
+// its 16 of the row's 512 bytes with one 16-byte load and one streaming
+// store (__stcs).
 __global__ void __launch_bounds__(TAKE_THREADS) take_rows_kernel(
-        const uint4 *__restrict__ tab, long n_rows, int panel_rows,
-        const int *__restrict__ idx, long n_out, long slice,
-        uint4 *__restrict__ out) {
-    extern __shared__ __align__(16) uint4 panel[];  // panel_rows x 32
-    const long p0 = (long)blockIdx.x * panel_rows;
-    const int rows = (int)min((long)panel_rows, n_rows - p0);
-    for (int t = threadIdx.x; t < rows * 32; t += TAKE_THREADS)
-        panel[t] = tab[p0 * 32 + t];
-    __syncthreads();
-    const long i0 = (long)blockIdx.y * slice;
-    const long i1 = min(n_out, i0 + slice);
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (long base = i0 + warp * 32; base < i1;
-         base += TAKE_THREADS) {
-        const long i = base + lane;
-        long local = -1;
-        if (i < i1) {
-            const int row = idx[i];
-            if (row < 0 || row >= n_rows) __trap();
-            local = row - p0;
-        }
-        unsigned hit = __ballot_sync(FULL, local >= 0 && local < rows);
-        while (hit) {
-            const int b = __ffs(hit) - 1;
-            hit &= hit - 1;
-            const int lr = __shfl_sync(FULL, (int)local, b);
-            out[(base + b) * 32 + lane] = panel[lr * 32 + lane];
-        }
+        const uint4 *__restrict__ tab, long n_rows,
+        const int *__restrict__ idx, long n, uint4 *__restrict__ out) {
+    const int lane = threadIdx.x & 31;
+    const long warps = (long)gridDim.x * TAKE_WARPS;
+    for (long i = (long)blockIdx.x * TAKE_WARPS + (threadIdx.x >> 5); i < n;
+         i += warps) {
+        const int row = idx[i];
+        if (row < 0 || row >= n_rows) __trap();
+        __stcs(out + i * 32 + lane, tab[(long)row * 32 + lane]);
     }
 }
 
 // ---- v_onehot_mxu: one-hot product on the tensor cores ---------------------
 
-constexpr int MMA_WARPS = 8;
-constexpr int N_COLS = 128;        // the table's width
-constexpr int B_STRIDE_PAD = 4;    // words of padding a transposed column
+constexpr int N_COLS = 128;      // the table's width
+constexpr int MMA_ROWS = 256;    // output rows a block: a warp per 16
+constexpr int MMA_COLS = 16;     // output columns a block (its slice)
+constexpr int MMA_THREADS = MMA_ROWS * 2;
+constexpr int MMA_TILES = MMA_COLS / 8;               // n-tiles of a warp
+constexpr int MMA_QUADS = MMA_COLS / 4;               // 16-byte loads a row
+constexpr int MMA_CHUNK = 4 * MMA_THREADS / MMA_QUADS;  // table rows a stage
+constexpr int MMA_MAX_CHUNKS = 1024 / MMA_CHUNK;
 
-__device__ __forceinline__ uint32_t onehot4(int d) {
-    // the 4 bytes of k = base..base+3 of a one-hot row whose 1 sits at
-    // base + d
-    return (d >= 0 && d < 4) ? 1u << (8 * d) : 0u;
+// words a column of the packed slice takes: 4 k a word, padded to 4 mod
+// 32 so that the staging stores and ldmatrix's rows are free of bank
+// conflicts
+__host__ __device__ constexpr int packed_stride(int k_rows) {
+    return (k_rows / 4 + 31) / 32 * 32 + 4;
 }
 
-// Warp w of block b: output rows 16 (b * MMA_WARPS + w) .. +15, all 128
-// columns (16 tiles of 8), over k in steps of 32.
-__global__ void __launch_bounds__(MMA_WARPS * 32) onehot_kernel(
-        const uint32_t *__restrict__ small, int k_rows,
+__device__ __forceinline__ uint32_t word(uint4 v, int j) {
+    return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// A row's one-hot A fragment: its 1 lies in k-step ks (of 32), where this
+// lane's a-word is lo (k 0-15 of the step) or hi (k 16-31); every other
+// k-step's a-words are 0.  A row past n has no 1 (ks < 0).
+struct OneHotRow {
+    int ks;
+    uint32_t lo, hi;
+};
+
+__device__ __forceinline__ OneHotRow onehot_row(int i, int tig) {
+    const int k = i & 31;
+    const uint32_t w = ((k >> 2) & 3) == tig ? 1u << (8 * (k & 3)) : 0u;
+    return {i >> 5, k < 16 ? w : 0u, k < 16 ? 0u : w};
+}
+
+// Block (x, y): output rows MMA_ROWS x .. + MMA_ROWS - 1, columns MMA_COLS
+// y .. + MMA_COLS - 1.  The block stages its slice of the table, k_rows x
+// MMA_COLS words, in chunks of MMA_CHUNK rows (one at 512 rows): a thread
+// loads 4 rows x 4 words (four 16-byte loads), checks them, packs them
+// into 4 words of four k each, one per column, stores them K-major and
+// loads its part of the next chunk.  After each chunk's barrier, warp w
+// multiplies its 16 rows' one-hot A, made in
+// registers from the indices, by the chunk's k-steps of 32: ldmatrix
+// reads B for both n-tiles, mma.sync m16n8k32 u8 x u8 -> s32 adds.
+__global__ void __launch_bounds__(MMA_THREADS) onehot_kernel(
+        const uint4 *__restrict__ small, int k_rows,
         const int *__restrict__ idx, long n, int *__restrict__ out) {
-    extern __shared__ uint32_t bt[];  // [N_COLS][k_rows / 4 + pad]
-    const int stride = k_rows / 4 + B_STRIDE_PAD;
-    // each word's four loads issue before any is checked, and four words
-    // a thread at once: the staging waits on few round trips to L2
-#pragma unroll 4
-    for (int t = threadIdx.x; t < N_COLS * (k_rows / 4);
-         t += MMA_WARPS * 32) {
-        const int col = t % N_COLS, k4 = t / N_COLS;
-        const uint32_t *src = small + (long)4 * k4 * N_COLS + col;
-        const uint32_t v0 = src[0], v1 = src[N_COLS];
-        const uint32_t v2 = src[2 * N_COLS], v3 = src[3 * N_COLS];
-        if ((v0 | v1 | v2 | v3) > 0xFFu) __trap();
-        bt[col * stride + k4] = v0 | v1 << 8 | v2 << 16 | v3 << 24;
-    }
-    __syncthreads();
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    extern __shared__ __align__(16) uint32_t bt[];  // [MMA_COLS][stride]
+    const int stride = packed_stride(k_rows);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int chunks = (k_rows + MMA_CHUNK - 1) / MMA_CHUNK;
+    // this thread's quad (4 columns) and first group of four k: a warp
+    // covers 2 quads x 16 groups, so a 16-byte load of a warp reads 16
+    // whole 32-byte sectors, and a store hits 32 banks
+    const int quad = 2 * (warp % (MMA_QUADS / 2)) + (lane & 1);
+    const int k4_first = 16 * (warp / (MMA_QUADS / 2)) + ((lane >> 1) & 15);
+    const uint4 *src = small + (long)blockIdx.y * MMA_QUADS + quad;
+    uint4 v[MMA_MAX_CHUNKS][4];
+    auto load = [&](int c, uint4 (&d)[4]) {
+        const int k4 = c * (MMA_CHUNK / 4) + k4_first;
+        if (k4 < k_rows / 4) {
+#pragma unroll
+            for (int r = 0; r < 4; r++)
+                d[r] = src[(long)(4 * k4 + r) * (N_COLS / 4)];
+        }
+    };
+    load(0, v[0]);
     const int g = lane >> 2, tig = lane & 3;
-    const long r0 = ((long)blockIdx.x * MMA_WARPS + warp) * 16 + g;
+    const long r0 = (long)blockIdx.x * MMA_ROWS + warp * 16 + g;
     const long r1 = r0 + 8;
     int i0 = -1000, i1 = -1000;  // rows past n: no 1 anywhere
     if (r0 < n) i0 = idx[r0];
@@ -361,37 +428,74 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) onehot_kernel(
     if ((r0 < n && (i0 < 0 || i0 >= k_rows)) ||
         (r1 < n && (i1 < 0 || i1 >= k_rows)))
         __trap();
-    int acc[16][4];
+    const OneHotRow h0 = onehot_row(i0, tig), h1 = onehot_row(i1, tig);
+    // this lane's ldmatrix row: matrix m = lane / 8 is n-tile m / 2, words
+    // 4 (m % 2) .. + 3 of the k-step; row lane % 8
+    const int m = lane >> 3;
+    const uint32_t ld_row = static_cast<uint32_t>(__cvta_generic_to_shared(
+        bt + ((m >> 1) * 8 + (lane & 7)) * stride + (m & 1) * 4));
+    int acc[MMA_TILES][4];
 #pragma unroll
-    for (int t = 0; t < 16; t++)
+    for (int t = 0; t < MMA_TILES; t++)
 #pragma unroll
-        for (int c = 0; c < 4; c++) acc[t][c] = 0;
-    for (int kb = 0; kb < k_rows; kb += 32) {
-        const int c = kb + tig * 4;
-        const uint32_t a0 = onehot4(i0 - c), a1 = onehot4(i1 - c);
-        const uint32_t a2 = onehot4(i0 - c - 16), a3 = onehot4(i1 - c - 16);
+        for (int e = 0; e < 4; e++) acc[t][e] = 0;
 #pragma unroll
-        for (int t = 0; t < 16; t++) {
-            const uint32_t *col = bt + (t * 8 + g) * stride + kb / 4;
-            const uint32_t b0 = col[tig], b1 = col[4 + tig];
-            asm volatile(
-                "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-                "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-                "{%0, %1, %2, %3};"
-                : "+r"(acc[t][0]), "+r"(acc[t][1]), "+r"(acc[t][2]),
-                  "+r"(acc[t][3])
-                : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+    for (int c = 0; c < MMA_MAX_CHUNKS; c++) {
+        if (c >= chunks) break;
+        const int k4 = c * (MMA_CHUNK / 4) + k4_first;
+        if (k4 < k_rows / 4) {
+            uint32_t any = 0;
+#pragma unroll
+            for (int r = 0; r < 4; r++)
+                any |= v[c][r].x | v[c][r].y | v[c][r].z | v[c][r].w;
+            if (any > 0xFFu) __trap();
+#pragma unroll
+            for (int j = 0; j < 4; j++)
+                bt[(4 * quad + j) * stride + k4] =
+                    word(v[c][0], j) | word(v[c][1], j) << 8 |
+                    word(v[c][2], j) << 16 | word(v[c][3], j) << 24;
+        }
+        if (c + 1 < MMA_MAX_CHUNKS && c + 1 < chunks)
+            load(c + 1, v[c + 1]);
+        __syncthreads();
+        const int s_end = min(k_rows, (c + 1) * MMA_CHUNK) / 32;
+#pragma unroll 4  // k-steps a loop turn: their ldmatrix reads in flight
+        for (int s = c * MMA_CHUNK / 32; s < s_end; s++) {
+            const uint32_t a0 = s == h0.ks ? h0.lo : 0u;
+            const uint32_t a2 = s == h0.ks ? h0.hi : 0u;
+            const uint32_t a1 = s == h1.ks ? h1.lo : 0u;
+            const uint32_t a3 = s == h1.ks ? h1.hi : 0u;
+#pragma unroll
+            for (int t2 = 0; t2 < MMA_TILES / 2; t2++) {
+                uint32_t b[4];
+                asm volatile(
+                    "ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
+                    "{%0, %1, %2, %3}, [%4];"
+                    : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+                    : "r"(ld_row + (t2 * 16 * stride + s * 8) * 4));
+#pragma unroll
+                for (int h = 0; h < 2; h++) {
+                    int (&d)[4] = acc[2 * t2 + h];
+                    asm volatile(
+                        "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+                        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+                        "{%0, %1, %2, %3};"
+                        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+                        : "r"(a0), "r"(a1), "r"(a2), "r"(a3),
+                          "r"(b[2 * h]), "r"(b[2 * h + 1]));
+                }
+            }
         }
     }
 #pragma unroll
-    for (int t = 0; t < 16; t++) {
-        const int col = t * 8 + tig * 2;
+    for (int t = 0; t < MMA_TILES; t++) {
+        const int col = blockIdx.y * MMA_COLS + t * 8 + tig * 2;
         if (r0 < n)
-            *reinterpret_cast<int2 *>(out + r0 * N_COLS + col) =
-                make_int2(acc[t][0], acc[t][1]);
+            __stcs(reinterpret_cast<int2 *>(out + r0 * N_COLS + col),
+                   make_int2(acc[t][0], acc[t][1]));
         if (r1 < n)
-            *reinterpret_cast<int2 *>(out + r1 * N_COLS + col) =
-                make_int2(acc[t][2], acc[t][3]);
+            __stcs(reinterpret_cast<int2 *>(out + r1 * N_COLS + col),
+                   make_int2(acc[t][2], acc[t][3]));
     }
 }
 
@@ -423,15 +527,6 @@ __global__ void __launch_bounds__(LANE_WARPS * 32) take_lanes_kernel(
                       lane_word(t, ix.z), lane_word(t, ix.w)));
 }
 
-int sm_count() {
-    int dev = 0, n = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-        return 0;
-    return n;
-}
-
 }  // namespace
 
 // tab: (rows, 128) 32-bit words, 16-byte aligned.  Streams the first
@@ -449,7 +544,9 @@ extern "C" int skt_sweep_bw(const void *tab, long rows, int chunk_rows,
     Ring r{(const unsigned char *)tab, 512, nullptr,
            reps * (rows / chunk_rows), chunk_rows, rows / chunk_rows,
            rows - chunk_rows, copy_rows, 1, 2};
-    return launch_ring(sweep_kernel, r, sms, out, (cudaStream_t)stream);
+    static DeviceBits smem_set;
+    return launch_ring(sweep_kernel, smem_set, r, sms, out,
+                       (cudaStream_t)stream);
 }
 
 // tab: (rows, 4) 32-bit words; idx: n row indices in [0, rows).  One
@@ -480,49 +577,43 @@ extern "C" int skt_block_dma_gather(const void *tab, long rows,
                                     void *stream) {
     Ring r{(const unsigned char *)tab, 512, (const int *)starts, n, rpd, 1,
            rows - rpd, piece_rows, issuers, 1};
-    return launch_ring(block_gather_kernel, r, 1, out,
+    static DeviceBits smem_set;
+    return launch_ring(block_gather_kernel, smem_set, r, 1, out,
                        (cudaStream_t)stream);
 }
 
-// tab: (rows, 128) 32-bit words; idx: n row indices; out: (n, 128).
-// Panels of panel_rows rows (at most 384), each loaded by
-// `slices` blocks, block (p, s) writing slice s's rows in panel p.
+// tab: (rows, 128) 32-bit words, 16-byte aligned; idx: n row indices;
+// out: (n, 128).  A warp a row, at most one wave of warps (2048 threads
+// an SM).
 extern "C" int skt_v_take_axis0(const void *tab, long rows, const void *idx,
-                                long n, int panel_rows, int slices,
-                                void *out, void *stream) {
-    const long smem = (long)panel_rows * 512;
-    if (panel_rows < 1 || slices < 1 || smem > SMEM_MAX)
-        return (int)cudaErrorInvalidValue;
+                                long n, void *out, void *stream) {
     if (n <= 0 || rows <= 0) return (int)cudaGetLastError();
-    cudaError_t e = cudaFuncSetAttribute(
-        take_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid((unsigned)((rows + panel_rows - 1) / panel_rows),
-                    (unsigned)slices);
-    take_rows_kernel<<<grid, TAKE_THREADS, smem, (cudaStream_t)stream>>>(
-        (const uint4 *)tab, rows, panel_rows, (const int *)idx, n,
-        (n + slices - 1) / slices, (uint4 *)out);
+    const int sms = sm_count();
+    if (sms < 1) return (int)cudaErrorInvalidDevice;
+    const long need = (n + TAKE_WARPS - 1) / TAKE_WARPS;
+    const long wave = (long)sms * (2048 / TAKE_THREADS);
+    const long blocks = need < wave ? need : wave;
+    take_rows_kernel<<<(unsigned)blocks, TAKE_THREADS, 0,
+                       (cudaStream_t)stream>>>(
+        (const uint4 *)tab, rows, (const int *)idx, n, (uint4 *)out);
     return (int)cudaGetLastError();
 }
 
-// small: (k_rows, 128) 32-bit words of at most 8 bits, k_rows a multiple
-// of 32; idx: n row indices in [0, k_rows); out: (n, 128) int32.
+// small: (k_rows, 128) 32-bit words of at most 8 bits, 16-byte aligned,
+// k_rows a multiple of 32 up to 1024; idx: n row indices in [0, k_rows);
+// out: (n, 128) int32.  Blocks of MMA_ROWS rows x MMA_COLS columns; the
+// packed slice (at most 16,640 bytes) needs no raised limit.
 extern "C" int skt_v_onehot_mxu(const void *small, int k_rows,
                                 const void *idx, long n, void *out,
                                 void *stream) {
-    const long smem = (long)N_COLS * (k_rows / 4 + B_STRIDE_PAD) * 4;
-    if (k_rows < 32 || k_rows % 32 || smem > SMEM_MAX)
+    if (k_rows < 32 || k_rows % 32 || k_rows > MMA_MAX_CHUNKS * MMA_CHUNK)
         return (int)cudaErrorInvalidValue;
     if (n <= 0) return (int)cudaGetLastError();
-    cudaError_t e = cudaFuncSetAttribute(
-        onehot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    const long rows_a_block = MMA_WARPS * 16;
-    onehot_kernel<<<(unsigned)((n + rows_a_block - 1) / rows_a_block),
-                    MMA_WARPS * 32, smem, (cudaStream_t)stream>>>(
-        (const uint32_t *)small, k_rows, (const int *)idx, n, (int *)out);
+    const int smem = MMA_COLS * packed_stride(k_rows) * 4;
+    const dim3 grid((unsigned)((n + MMA_ROWS - 1) / MMA_ROWS),
+                    N_COLS / MMA_COLS);
+    onehot_kernel<<<grid, MMA_THREADS, smem, (cudaStream_t)stream>>>(
+        (const uint4 *)small, k_rows, (const int *)idx, n, (int *)out);
     return (int)cudaGetLastError();
 }
 

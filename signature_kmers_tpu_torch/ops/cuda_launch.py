@@ -104,7 +104,7 @@ ENTRY_POINTS = {
     "block_dma_gather": ("dma_probes", "skt_block_dma_gather",
                          [PTR, LONG, PTR, LONG, INT, INT, INT, PTR]),
     "v_take_axis0": ("dma_probes", "skt_v_take_axis0",
-                     [PTR, LONG, PTR, LONG, INT, INT, PTR]),
+                     [PTR, LONG, PTR, LONG, PTR]),
     "v_onehot_mxu": ("dma_probes", "skt_v_onehot_mxu",
                      [PTR, INT, PTR, LONG, PTR]),
     "v_take_lanes": ("dma_probes", "skt_v_take_lanes",

@@ -35,7 +35,6 @@ ROW_WORDS = 128           # words of a wide table's 512-byte row
 SWEEP_COPY_ROWS = 128     # rows of one bulk copy of the sweep (64 KiB)
 BLOCK_PIECE_ROWS = 64     # rows a slot of block_dma_gather holds (32 KiB)
 BLOCK_RING_BYTES = 160 << 10  # shared memory of block_dma_gather's slots
-PANEL_ROWS = 384          # rows of v_take_axis0's panel (192 KiB)
 SMEM_MAX = 232448         # dynamic shared memory a block may use
 _GOLDEN = 2654435761      # the tables' multiplier (pallas_dma_bench.py:57)
 
@@ -264,23 +263,12 @@ def v_take_axis0_reference(tab, idx):
     return tab[idx[:, 0].long()]
 
 
-def take_axis0_geometry(rows: int, device) -> tuple[int, int]:
-    """(panel_rows, slices) of v_take_axis0 on the card: panels of at most
-    PANEL_ROWS table rows, each loaded by ``slices`` blocks, so that the
-    grid covers the card's SMs once."""
-    panel = min(rows, PANEL_ROWS)
-    panels = -(-rows // panel)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return panel, max(1, sms // panels)
-
-
 def v_take_axis0(tab, idx, *, check_ranges: bool = True):
-    """out[i, :] = tab[idx[i, 0], :] by a gather from shared memory.
+    """out[i, :] = tab[idx[i, 0], :] by a direct gather through L2.
 
     tab: (R, 128) int32; idx: (n, 1) int32 in [0, R) -> (n, 128) int32.
-    A block holds a panel of the table (take_axis0_geometry) and writes
-    the output rows whose index lies in it.  check_ranges: the module
-    docstring."""
+    A warp copies a row, a lane's 16 bytes of it, straight from the table
+    (which L2 holds across calls).  check_ranges: the module docstring."""
     if not cl.on_cuda(tab, idx):
         return v_take_axis0_reference(tab, idx)
     _check_table(tab, "tab", ROW_WORDS)
@@ -290,10 +278,8 @@ def v_take_axis0(tab, idx, *, check_ranges: bool = True):
         _check_range(idx, "idx", tab.shape[0] - 1)
     out = torch.empty((idx.shape[0], ROW_WORDS), dtype=torch.int32,
                       device=tab.device)
-    panel, slices = take_axis0_geometry(tab.shape[0], tab.device)
     cl.launch("v_take_axis0", [tab.data_ptr(), tab.shape[0], idx.data_ptr(),
-                               idx.shape[0], panel, slices, out.data_ptr()],
-              tab.device)
+                               idx.shape[0], out.data_ptr()], tab.device)
     v_take_axis0.launches += 1
     return out
 
@@ -322,10 +308,11 @@ def v_onehot_mxu_reference(small, idx):
 
 def v_onehot_mxu(small, idx, *, check_ranges: bool = True):
     """out = onehot(idx[:, 0]) @ small on the tensor cores (mma.sync u8 x
-    u8 -> s32).  small: (K, 128) int32 words of at most 8 bits, K a
-    multiple of 32 up to 1024; idx: (n, 1) int32 in [0, K) -> (n, 128)
-    int32 = small[idx[:, 0]].  check_ranges (the module docstring) covers
-    the words too."""
+    u8 -> s32, every k), each block a slice of rows x columns that packs
+    its columns of small to u8 as they arrive.  small: (K, 128) int32
+    words of at most 8 bits, K a multiple of 32 up to 1024; idx: (n, 1)
+    int32 in [0, K) -> (n, 128) int32 = small[idx[:, 0]].  check_ranges
+    (the module docstring) covers the words too."""
     if not cl.on_cuda(small, idx):
         return v_onehot_mxu_reference(small, idx)
     _check_table(small, "small", ROW_WORDS)
@@ -334,7 +321,7 @@ def v_onehot_mxu(small, idx, *, check_ranges: bool = True):
     if K < 32 or K % 32 or K > 1024:
         raise ValueError(f"small: a multiple of 32 rows up to 1024 expected, "
                          f"got {K}")
-    cl.check_aligned(8, small=small)
+    cl.check_aligned(16, small=small)
     if check_ranges:
         _check_range(idx, "idx", K - 1)
         _check_words(small)

@@ -602,26 +602,31 @@ def test_block_dma_gather(dev, wide_rows, rpd):
 
 @pytest.mark.parametrize("rows", [8192, 384, 1000, 5])
 def test_v_take_axis0(dev, rows):
-    """The JAX shape (8192-row table, 4096 indices), one panel, panels
-    with a short last one, a table of five rows."""
+    """The JAX shape (8192-row table, 4096 indices), the smoke's 384-row
+    table, tables of 1000 and five rows; index counts of one, one more
+    than a warp's rows (2, 3, 5 or 9 for 1, 2, 4 or 8 rows a warp), a
+    warp's lanes plus one, and more rows than one wave of warps holds
+    (the warps then stride)."""
     tab = dma_probes.make_table_w(rows, dev)
     gen = torch.Generator().manual_seed(rows)
-    for n in (4096, 77):
+    for n in (4096, 77, 1, 2, 3, 5, 9, 33, 40000):
         idx = _ints(gen, 0, rows, (n, 1), dev)
-        idx[:2, 0] = torch.tensor([0, rows - 1], dtype=torch.int32)
+        idx[:2, 0] = torch.tensor([0, rows - 1][:n], dtype=torch.int32)
         _probe_holds("v_take_axis0", tab, idx)
 
 
-@pytest.mark.parametrize("k_rows", [512, 32])
+@pytest.mark.parametrize("k_rows", [512, 32, 96, 1024])
 def test_v_onehot_mxu(dev, k_rows):
-    """8-bit words (the JAX kernel's tab[:512] & 0xFF, and all 256 values),
-    row counts that fill the last warp's tile and that do not."""
+    """8-bit words (the JAX kernel's tab[:512] & 0xFF, and all 256 values);
+    tables of one k-step, of a partial staging chunk (96) and of the
+    wrapper's largest (1024); row counts that fill the last block's tiles
+    and that do not (4099, 5, 65, 1)."""
     small = dma_probes.make_table_w(k_rows, dev) & 0xFF
     small[0] = torch.arange(128, device=dev, dtype=torch.int32) + 128
     gen = torch.Generator().manual_seed(k_rows)
-    for n in (4096, 4099, 5):
+    for n in (4096, 4099, 5, 65, 1):
         idx = _ints(gen, 0, k_rows, (n, 1), dev)
-        idx[:2, 0] = torch.tensor([0, k_rows - 1], dtype=torch.int32)
+        idx[:2, 0] = torch.tensor([0, k_rows - 1][:n], dtype=torch.int32)
         _probe_holds("v_onehot_mxu", small, idx)
 
 
